@@ -1,0 +1,269 @@
+"""Dynamic micro-batcher with admission control.
+
+Counterpart of ``incubator_mxnet_tpu/serve/batcher.py``. Coalesces
+concurrent single-sample requests into padded batches on a bucket ladder:
+a max-latency trigger so a lone request never waits longer than
+``max_latency_ms``, and a max-batch trigger so a full bucket dispatches
+immediately.
+
+Admission control is load-shed-first: the request queue is BOUNDED, an
+overflowing submit fails fast with a retryable ``Overloaded``, and
+requests whose deadline expired while queued are dropped before wasting a
+bucket slot (``DeadlineExceeded``).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+
+import numpy as _np
+
+from ..base import MXNetError
+from .stats import ServingStats
+from .. import mxsan as _mxsan
+
+__all__ = ["DynamicBatcher", "Overloaded", "DeadlineExceeded"]
+
+
+class Overloaded(MXNetError):
+    """Admission queue full — shed, retry against another replica/later."""
+    retryable = True
+    status = 503
+
+
+class DeadlineExceeded(MXNetError):
+    """Request deadline passed before a result was produced."""
+    retryable = True
+    status = 504
+
+
+class _Request:
+    __slots__ = ("inputs", "future", "enqueue_t", "deadline")
+
+    def __init__(self, inputs, deadline):
+        self.inputs = inputs
+        self.future = Future()
+        self.enqueue_t = time.monotonic()
+        self.deadline = deadline
+
+
+_STOP = object()
+
+
+class DynamicBatcher:
+    """Batches ``submit()``ed single-sample requests through a predictor.
+
+    predict:      callable(dict name -> (B, ...) array) -> list of (B, ...)
+                  arrays; called from the batcher's one dispatch thread.
+    buckets:      the ladder — dispatch pads up to the next bucket and
+                  never exceeds the largest.
+    max_latency_ms: oldest-request wait bound before a partial bucket
+                  dispatches.
+    max_queue:    admission bound; beyond it submit() raises Overloaded.
+    default_deadline_ms: per-request deadline when submit passes none.
+
+    Requests are dicts of UNBATCHED arrays (sample shape, no batch axis);
+    results resolve to lists of per-sample output arrays. Mixed sample
+    shapes are grouped by signature and dispatched as separate buckets.
+    """
+
+    def __init__(self, predict, buckets=(1, 2, 4, 8, 16, 32),
+                 max_latency_ms=5.0, max_queue=128,
+                 default_deadline_ms=None, stats=None, name="serve"):
+        self._predict = predict
+        sizes = sorted({int(b) for b in buckets})
+        if not sizes:
+            raise MXNetError("empty bucket ladder")
+        self._buckets = tuple(sizes)
+        self._max_batch = sizes[-1]
+        self._max_latency = max_latency_ms / 1e3
+        self._default_deadline = (default_deadline_ms / 1e3
+                                  if default_deadline_ms else None)
+        self._queue = queue.Queue(maxsize=max_queue)
+        self.stats = stats if stats is not None else ServingStats(name)
+        self._thread = None
+        self._running = False
+        self._lock = _mxsan.lock("serve/batcher.py", "self._lock")
+
+    # -- lifecycle ------------------------------------------------------
+    def start(self):
+        with self._lock:
+            if self._running:
+                return self
+            self._running = True
+            self._thread = threading.Thread(target=self._loop,
+                                            name="mxtpu-batcher",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self, drain=True):
+        with self._lock:
+            if not self._running:
+                return
+            self._running = False
+        self._queue.put(_STOP)
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        if not drain:
+            self._fail_pending(MXNetError("batcher stopped"))
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _fail_pending(self, err):
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            self._queue.task_done()
+            if req is not _STOP:
+                req.future.set_exception(err)
+
+    def quiesce(self, timeout=None):
+        """Wait until the queue is empty AND no batch is in flight;
+        returns True when drained, False on timeout."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self._queue.unfinished_tasks:
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            time.sleep(0.002)
+        return True
+
+    # -- admission ------------------------------------------------------
+    def submit(self, inputs, deadline_ms=None):
+        """Enqueue one request; returns a Future resolving to the list of
+        per-sample outputs. Raises Overloaded when the admission queue is
+        full."""
+        if not self._running:
+            raise MXNetError("batcher not started")
+        deadline = None
+        if deadline_ms is not None:
+            deadline = time.monotonic() + deadline_ms / 1e3
+        elif self._default_deadline is not None:
+            deadline = time.monotonic() + self._default_deadline
+        req = _Request(inputs, deadline)
+        self.stats.incr("requests_total")
+        try:
+            self._queue.put_nowait(req)
+        except queue.Full:
+            self.stats.incr("shed_queue_full")
+            raise Overloaded(
+                f"admission queue full ({self._queue.maxsize} pending); "
+                "retry later") from None
+        self.stats.set_gauge("queue_depth", self._queue.qsize())
+        return req.future
+
+    def __call__(self, inputs, deadline_ms=None, timeout=None):
+        """Synchronous submit().result() convenience."""
+        return self.submit(inputs, deadline_ms).result(timeout=timeout)
+
+    # -- dispatch loop --------------------------------------------------
+    def _loop(self):
+        while True:
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                if not self._running:
+                    return
+                continue
+            if first is _STOP:
+                self._queue.task_done()
+                return
+            batch = [first]
+            stop_after = False
+            window_end = first.enqueue_t + self._max_latency
+            while len(batch) < self._max_batch:
+                wait = window_end - time.monotonic()
+                try:
+                    item = (self._queue.get_nowait() if wait <= 0
+                            else self._queue.get(timeout=wait))
+                except queue.Empty:
+                    break
+                if item is _STOP:
+                    self._queue.task_done()
+                    stop_after = True
+                    break
+                batch.append(item)
+            try:
+                self._dispatch(batch)
+            finally:
+                # quiesce() keys off unfinished_tasks: a request counts
+                # until its future is RESOLVED, not merely popped
+                for _ in batch:
+                    self._queue.task_done()
+            if stop_after:
+                return
+
+    def _bucket_for(self, n):
+        for s in self._buckets:
+            if s >= n:
+                return s
+        return self._max_batch
+
+    def _dispatch(self, batch):
+        now = time.monotonic()
+        live = []
+        for req in batch:
+            if req.deadline is not None and now > req.deadline:
+                self.stats.incr("shed_deadline")
+                req.future.set_exception(DeadlineExceeded(
+                    "deadline expired while queued; retry with more "
+                    "headroom"))
+            else:
+                live.append(req)
+        self.stats.set_gauge("queue_depth", self._queue.qsize())
+        if not live:
+            self.stats.publish()
+            return
+        # shape-bucketing: one padded batch per sample signature
+        groups = {}
+        for req in live:
+            sig = tuple((k, tuple(_np.shape(v)), str(_np.asarray(v).dtype))
+                        for k, v in sorted(req.inputs.items()))
+            groups.setdefault(sig, []).append(req)
+        for reqs in groups.values():
+            self._run_group(reqs)
+
+    def _run_group(self, reqs):
+        t0 = time.monotonic()
+        n = len(reqs)
+        bucket = self._bucket_for(n)
+        try:
+            stacked = {}
+            for name in reqs[0].inputs:
+                rows = [_np.asarray(r.inputs[name]) for r in reqs]
+                arr = _np.stack(rows, axis=0)
+                if bucket > n:
+                    widths = [(0, bucket - n)] + [(0, 0)] * (arr.ndim - 1)
+                    arr = _np.pad(arr, widths)
+                stacked[name] = arr
+            outs = self._predict(stacked)
+            outs = [_np.asarray(o) for o in outs]
+        except Exception as e:  # noqa: BLE001 — fail the requests, not the loop
+            self.stats.incr("errors", n)
+            for r in reqs:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            self.stats.publish()
+            return
+        t1 = time.monotonic()
+        for i, r in enumerate(reqs):
+            r.future.set_result([o[i] for o in outs])
+            self.stats.latency.observe(t1 - r.enqueue_t)
+            self.stats.queue_wait.observe(t0 - r.enqueue_t)
+        self.stats.forward_time.observe(t1 - t0)
+        self.stats.observe_bucket(
+            bucket, [t0 - r.enqueue_t for r in reqs], t1 - t0)
+        self.stats.incr("responses_ok", n)
+        self.stats.incr("batches_total")
+        self.stats.incr("padded_rows_total", bucket - n)
+        self.stats.set_gauge("batch_occupancy", n / bucket)
+        self.stats.publish()
