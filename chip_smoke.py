@@ -5,24 +5,34 @@
 
 Phases, each of which fails the run (exit code != 0, no result line):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the hand CUDA kernels from the repository's sources (nvcc,
-     sm_90a);
-  3. hold every kernel against its plain PyTorch twin on the card, at every
-     shape the ResNet-50 v1 batch-32 forward launches it with (fp32), plus
-     one bf16 shape each, and time kernel, twin and the one PyTorch call
-     that computes the same function where there is one (CUDA graphs of
-     back-to-back launches, inputs rotated to spill the 50 MB L2);
-  4. build resnet50_v1(classes=1000) on cuda:0 with seeded weights and
+  2. build the hand CUDA kernels from the repository's sources (one nvcc
+     per source, all at once, sm_90a);
+  3. hold every forward kernel against its plain PyTorch twin on the card,
+     at every shape the ResNet-50 v1 batch-32 forward launches it with
+     (fp32), plus one bf16 shape each, and time kernel, twin and the one
+     PyTorch call that computes the same function where there is one (CUDA
+     graphs of back-to-back launches, inputs rotated to spill the 50 MB L2);
+  4. the same for the fused 3x3 conv backward (conv3x3) at the four
+     batch-32 shapes of the training step plus one bf16 shape, and check
+     that a rerun gives a bit-identical dW;
+  5. build resnet50_v1(classes=1000) on cuda:0 with seeded weights and
      non-trivial BatchNorm statistics, serve 64 single-image requests from
      8 threads through serve.DynamicBatcher (buckets 1..32) and check each
      answer against the row of a direct batch-32 forward;
-  5. check the launch counters: per batch-32 forward conv_bn_relu 29,
+  6. check the launch counters: per batch-32 forward conv_bn_relu 29,
      bn_add_act 16, bn_act 3, bn_apply 5, and the serving run's counts are
      those times the batches it dispatched;
-  6. compare the batch-32 logits with the same net run through the plain
-     twins on the card;
-  7. time the batch-32 fp32 forward (img/s) through the kernels and through
-     the twins.
+  7. compare the batch-32 logits with the same net run through the plain
+     twins on the card, and time the forward (img/s) both ways;
+  8. train resnet50_v1(classes=1000), fp32, batch 32, from seeded weights
+     for 3 steps of autograd.record / backward / Trainer.step (SGD, lr
+     0.01, momentum 0.9) with MXTPU_FUSED_CONV_BWD=1; check the launches
+     per step (conv3x3 16, bn_act 32, bn_add_act 16, bn_apply 5,
+     conv_bn_relu 0), that no parameter's gradient is all zero, that the
+     same steps through the twins give the same losses and weights, and
+     that TrainStep.run_steps(3) gives the same losses;
+  9. time the training step (img/s) with the knob on (hand backward) and
+     off (cuDNN's), with a torch.profiler breakdown and peak memory.
 It prints the card line, the kernels line and, last,
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the package beside it, it exits non-zero.
@@ -54,12 +64,20 @@ N_THREADS = 8
 SEED = 0
 PER_FORWARD = {"conv_bn_relu": 29, "bn_add_act": 16, "bn_act": 3,
                "bn_apply": 5}
-SOURCE = "incubator_mxnet_tpu_torch/csrc/fused_conv.cu"
+PER_TRAIN_STEP = {"conv3x3": 16, "bn_act": 32, "bn_add_act": 16,
+                  "bn_apply": 5, "conv_bn_relu": 0}
+TRAIN_STEPS = 3
+LR, MOMENTUM = 0.01, 0.9
+SOURCES = ("fused_conv", "conv_backward")
+SOURCE = {name: "incubator_mxnet_tpu_torch/csrc/fused_conv.cu"
+          for name in PER_FORWARD}
+SOURCE["conv3x3"] = "incubator_mxnet_tpu_torch/csrc/conv_backward.cu"
 REPLACES = {
     "conv_bn_relu": "incubator_mxnet_tpu/parallel/fused_conv.py:255",
     "bn_add_act": "incubator_mxnet_tpu/parallel/fused_conv.py:108",
     "bn_act": "incubator_mxnet_tpu/parallel/fused_conv.py:103",
     "bn_apply": "incubator_mxnet_tpu/parallel/fused_conv.py:103",
+    "conv3x3": "incubator_mxnet_tpu/parallel/conv_backward.py:126",
 }
 # tolerances, kernel vs twin on the same inputs:
 #  epilogues: the kernel rounds the multiply and the add separately, as the
@@ -75,6 +93,28 @@ NET_REL_TOL = 1e-3
 #  the same bits in any batch, but cuDNN/cuBLAS may pick other algorithms
 #  for other batch sizes: max|d| <= 1e-4 * max|logits|.
 SERVE_REL_TOL = 1e-4
+#  conv3x3 backward vs its twin (the same backward summed in float64 by
+#  PyTorch, cast to the working dtype): dx sums O*9 terms and dW up to
+#  N*H*W = 100,352 terms in fp32, in another order: max|kernel - twin| <=
+#  tol * max|twin| for dx and for dW. cuDNN's own fp32 backward (the
+#  library call) is held to nothing; its distance to the twin is recorded.
+BWD_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#  training checks run with cuDNN's deterministic algorithms: with its
+#  default ones the same 3-step Trainer loop run twice already differs in
+#  the step-3 loss and the weight updates (phase 8 measures and reports
+#  it), because this randomly initialised net's trajectory amplifies
+#  last-bit differences. Kernels vs twins: the hand conv3x3 backward and
+#  cuDNN's sum in other orders, which the trajectory amplifies the same
+#  way. So: each step's mean loss within 5e-3 relative, and
+#  ||w_kernels - w_twins|| <= 0.2 * ||w_twins - w_0|| summed over all
+#  parameters, which a missing or doubled gradient in any large part of
+#  the net exceeds.
+TRAIN_LOSS_REL_TOL = 5e-3
+TRAIN_UPDATE_REL_TOL = 0.2
+#  TrainStep.run_steps vs the record/backward/Trainer loop, both through
+#  the kernels and deterministic: the same arithmetic up to an exact 1/32
+#  scaling of the head gradient, so the same losses to 1e-6 relative.
+TRAINSTEP_LOSS_REL_TOL = 1e-6
 
 
 class PhaseError(RuntimeError):
@@ -214,18 +254,23 @@ def phase_card():
     return line
 
 
-def phase_build(fc, cuda):
+def phase_build(cuda, modules):
+    """Build every source at once (one nvcc each), then load each."""
     t0 = time.perf_counter()
-    fc.build()
+    cuda.build(SOURCES)
+    for mod in modules:
+        mod.build()
     secs = time.perf_counter() - t0
-    log = cuda.log_path("fused_conv")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    print(f"build: fused_conv in {secs:.1f} s; ptxas lines: {len(ptxas)}",
-          flush=True)
-    for ln in ptxas:
-        if "spill" in ln and not ln.startswith("0 bytes"):
-            print(f"  ptxas: {ln}")
+    ptxas = {}
+    for name in SOURCES:
+        log = cuda.log_path(name)
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+                       if "registers" in ln or "spill" in ln] \
+            if log.exists() else []
+        for ln in ptxas[name]:
+            if "spill" in ln and not ln.startswith("0 bytes"):
+                print(f"  ptxas {name}: {ln}")
+    print(f"build: {', '.join(SOURCES)} in {secs:.1f} s", flush=True)
     return {"seconds": secs, "ptxas": ptxas}
 
 
@@ -349,7 +394,8 @@ def _set_bn_stats(torch, net, gen):
                 "running_var": lambda: torch.rand(t.shape, generator=gen)
                 * 0.4 + 0.8}.get(leaf)
         if draw is not None:
-            t.copy_(draw())
+            with torch.no_grad():       # gamma/beta are autograd leaves
+                t.copy_(draw())
 
 
 def phase_model(torch, mx, fc):
@@ -462,7 +508,8 @@ def phase_model(torch, mx, fc):
     print(f"resnet50_v1 fp32 batch {BATCH}: {fps:.2f} img/s through the "
           f"kernels, {plain_fps:.2f} img/s through the twins; peak "
           f"{peak / 2 ** 20:.0f} MiB", flush=True)
-    profile = phase_profile(torch, forward, images[:BATCH])
+    profile = phase_profile(torch, lambda: forward(images[:BATCH]),
+                            f"batch-{BATCH} forward")
     return {"served_launches": served, "serve_seconds": serve_s,
             "serve_stats": stats, "per_forward": per_forward,
             "serve_max_abs_err": serve_err, "serve_rows_bit_equal":
@@ -473,23 +520,27 @@ def phase_model(torch, mx, fc):
 
 _CATEGORIES = (("conv_bn_relu_kernel", "conv_bn_relu (hand)"),
                ("bn_epilogue_kernel", "bn epilogues (hand)"),
+               ("namespace)::dgrad_kernel", "conv3x3 backward (hand)"),
+               ("namespace)::wgrad_kernel", "conv3x3 backward (hand)"),
+               ("namespace)::reduce_kernel", "conv3x3 backward (hand)"),
+               ("foreach", "optimizer (foreach)"),
                ("memcpy", "copies"), ("conv", "cuDNN convolution"),
                ("xmma", "cuDNN convolution"), ("cudnn", "cuDNN convolution"),
                ("gemm", "cuBLAS matmul"), ("pool", "pooling"))
 
 
-def phase_profile(torch, forward, x, iters=3):
-    """Device time by kernel over `iters` batch-32 forwards under
+def phase_profile(torch, fn, label, iters=3):
+    """Device time by kernel over `iters` calls of fn() under
     torch.profiler, and the device's idle share of the wall time (both
     under the profiler's own overhead)."""
     from torch.profiler import ProfilerActivity, profile
-    forward(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            forward(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     kernels = []
@@ -505,7 +556,7 @@ def phase_profile(torch, forward, x, iters=3):
                    "other elementwise")
         by_cat[cat] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:12]
-    print(f"profile, per batch-{BATCH} forward: wall {wall_ms:.3f} ms, "
+    print(f"profile, per {label}: wall {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms, idle share "
           f"{(1 - busy / wall_ms) if busy else float('nan'):.3f}", flush=True)
     for cat, ms in by_cat.most_common():
@@ -528,9 +579,310 @@ def _throughput(torch, forward, x, iters=10):
     return iters * x.shape[0] / (time.perf_counter() - t0)
 
 
-def kernels_line(rows, served):
+def conv3x3_train_shapes(shapes):
+    """Counter((n, c, h, w) -> launches per training step) of the conv3x3
+    backward: the 3x3 conv of every bottleneck unit (c in = c out)."""
+    return Counter({s[:4]: n for s, n in shapes["conv_bn_relu"].items()
+                    if s[5] == 3})
+
+
+def _bwd_inputs(torch, shape, dtype, gen, device):
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    wt = (torch.randn((c, c, 3, 3), generator=gen, device=device)
+          / math.sqrt(9 * c)).to(dtype)
+    go = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return (x, wt, go)
+
+
+def _cudnn_bwd(torch):
+    """PyTorch's conv backward in the working dtype (cuDNN on the card):
+    the library call beside the hand conv3x3 backward."""
+    def bwd(x, wt, go):
+        return (torch.nn.grad.conv2d_input(x.shape, wt, go, padding=1),
+                torch.nn.grad.conv2d_weight(x, wt.shape, go, padding=1))
+    return bwd
+
+
+def phase_conv_backward(torch, cb, shapes, device):
+    """conv3x3 backward vs its twin at every batch-32 training shape (fp32)
+    plus one bf16 shape; a rerun must give bit-identical dx and dW."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    kern = cb.conv3x3_bwd
+    cases = [(s, "float32") for s in shapes] + [(min(shapes), "bfloat16")]
+    rows = []
+    for shape, dt in cases:
+        dtype = getattr(torch, dt)
+        args = _bwd_inputs(torch, shape, dtype, gen, device)
+        dx, dw = kern(*args)
+        rdx, rdw = kern.plain(*args)
+        dx2, dw2 = kern(*args)
+        torch.cuda.synchronize()
+        row = {"kernel": "conv3x3", "shape": list(shape), "dtype": dt,
+               "bit_identical_rerun": bool(torch.equal(dw, dw2)
+                                           and torch.equal(dx, dx2))}
+        for name, out, ref in (("dx", dx, rdx), ("dw", dw, rdw)):
+            _check(torch.isfinite(out.float()).all().item(),
+                   f"conv3x3 {shape} {dt}: non-finite {name}")
+            err = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            rel = err / max(scale, 1e-30)
+            _check(rel <= BWD_REL_TOL[dt],
+                   f"conv3x3 {shape} {dt}: max|{name} - twin| {err:.3e} is "
+                   f"{rel:.2e} of max|twin| {scale:.3e} "
+                   f"(tol {BWD_REL_TOL[dt]})")
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_rel_err"] = rel
+        row["max_abs_err"] = max(row["dx_max_abs_err"], row["dw_max_abs_err"])
+        _check(row["bit_identical_rerun"],
+               f"conv3x3 {shape} {dt}: a rerun changed dx or dW")
+        row["per_forward"] = shapes[shape] if dt == "float32" else 0
+        if dt == "float32":
+            n, c, h, w = shape
+            flops = 2 * 2.0 * n * h * w * c * c * 9
+            nbytes = (3 * n * c * h * w + 2 * c * c * 9) * 4
+            sets = [args] + [_bwd_inputs(torch, shape, dtype, gen, device)
+                             for _ in range(_n_sets(nbytes) - 1)]
+            row["ms"] = _graph_ms(torch, kern, sets)
+            row["plain_ms"] = _graph_ms(torch, kern.plain, sets)
+            row["library_ms"] = _graph_ms(torch, _cudnn_bwd(torch), sets)
+            ldx, ldw = _cudnn_bwd(torch)(*args)
+            row["library_dx_rel_err"] = float(
+                (ldx - rdx).abs().max() / rdx.abs().max())
+            row["library_dw_rel_err"] = float(
+                (ldw - rdw).abs().max() / rdw.abs().max())
+            t_ops = flops / FP32_FLOP_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            row["bound_ms"] = max(t_ops, t_bytes)
+            row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+            del sets
+        rows.append(row)
+        print(f"  conv3x3 bwd  {dt:8s} {str(shape):24s} "
+              f"dx rel={row['dx_rel_err']:.2e} dW rel={row['dw_rel_err']:.2e}"
+              + (f" ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                 f"cudnn={row['library_ms']:.4f} bound={row['bound_ms']:.4f}"
+                 f" ({row['tflops']:.1f} TFLOP/s); cudnn rel dx="
+                 f"{row['library_dx_rel_err']:.2e} "
+                 f"dW={row['library_dw_rel_err']:.2e}" if "ms" in row
+                 else ""), flush=True)
+    return rows
+
+
+def _mean_ce(torch):
+    """Mean softmax cross entropy of (logits, float class labels): what
+    SoftmaxCrossEntropyLoss averages, as a TrainStep loss_fn."""
+    def loss_fn(out, label):
+        logp = torch.log_softmax(out, dim=-1)
+        return -logp.gather(1, label.long()[:, None]).mean()
+    return loss_fn
+
+
+class _TrainRig:
+    """resnet50_v1(classes=1000) on cuda:0 from seeded Xavier weights, one
+    seeded batch-32 batch, and the record/backward/Trainer.step loop."""
+
+    def __init__(self, torch, mx):
+        from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+            resnet50_v1
+        self.mx = mx
+        ctx = mx.gpu(0)
+        gen = torch.Generator().manual_seed(SEED + 1)
+        self.net = resnet50_v1(classes=1000)
+        self.net.initialize(mx.init.Xavier(generator=gen), ctx=ctx)
+        rng = np.random.RandomState(SEED + 1)
+        self.x = mx.nd.array(rng.standard_normal((BATCH, 3, 224, 224))
+                             .astype(np.float32), ctx=ctx)
+        self.y = mx.nd.array(rng.randint(0, 1000, BATCH).astype(np.float32),
+                             ctx=ctx)
+        self.net(self.x)                          # finish deferred init
+        self.params = self.net._collect_params_with_prefix()
+        self.init = self.weights()
+        self.loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def weights(self):
+        return {k: p.data().astorch().detach().clone()
+                for k, p in self.params.items()}
+
+    def reset(self):
+        """Back to the initial weights, in place."""
+        for k, p in self.params.items():
+            p.set_data(self.mx.nd.NDArray(self.init[k]))
+
+    def trainer(self):
+        return self.mx.gluon.Trainer(
+            self.net.collect_params(), "sgd",
+            {"learning_rate": LR, "momentum": MOMENTUM})
+
+    def train(self, steps, trainer=None):
+        """``steps`` steps; returns each step's mean loss."""
+        mx = self.mx
+        trainer = trainer or self.trainer()
+        losses = []
+        for _ in range(steps):
+            with mx.autograd.record():
+                L = self.loss(self.net(self.x), self.y)
+            L.backward()
+            trainer.step(BATCH)
+            losses.append(float(L.asnumpy().mean()))
+        return losses
+
+
+def phase_train(torch, mx, kernels):
+    """The training main path: 3 steps of record/backward/Trainer.step on
+    resnet50_v1 fp32 batch 32 with MXTPU_FUSED_CONV_BWD=1, the same steps
+    through the twins, TrainStep.run_steps (all with cuDNN's deterministic
+    algorithms), then timing with its default ones."""
+    os.environ["MXTPU_FUSED_CONV_BWD"] = "1"
+    rig = _TrainRig(torch, mx)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        checks = _train_checks(torch, rig, kernels)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    checks["default_algorithms_rerun"] = _train_rerun_spread(rig)
+    return dict(checks, **_train_timing(torch, rig))
+
+
+def _trajectory_gap(rig, a, b):
+    """(max relative loss gap, update gap in relative L2) of two
+    (losses, weights) runs from the rig's initial weights."""
+    (la, wa), (lb, wb) = a, b
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+    num = sum(float((wa[k] - wb[k]).double().pow(2).sum()) for k in rig.init)
+    den = sum(float((wb[k] - rig.init[k]).double().pow(2).sum())
+              for k in rig.init)
+    return loss_rel, math.sqrt(num / den)
+
+
+def _train_rerun_spread(rig):
+    """The same 3-step loop through the kernels, twice, with cuDNN's
+    default (not deterministic) algorithms: how far the trajectory moves
+    by itself."""
+    runs = []
+    for _ in range(2):
+        rig.reset()
+        runs.append((rig.train(TRAIN_STEPS), rig.weights()))
+    loss_rel, update_rel = _trajectory_gap(rig, *runs)
+    print(f"train, the kernel path twice with cuDNN's default algorithms: "
+          f"losses {runs[0][0]} / {runs[1][0]}, max rel {loss_rel:.2e}; "
+          f"updates differ by {update_rel:.2e} (relative L2)", flush=True)
+    return {"loss_rel": loss_rel, "update_rel": update_rel}
+
+
+def _train_checks(torch, rig, kernels):
+    """Launch counts, gradients, the twin trajectory and TrainStep, all
+    from the same initial weights."""
+    from incubator_mxnet_tpu_torch import tune
+    from incubator_mxnet_tpu_torch.parallel import TrainStep
+
+    params = rig.params
+    rig.reset()
+    for k in kernels:
+        k.launches = 0
+    per_step = []
+    trainer = rig.trainer()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in kernels}
+        losses += rig.train(1, trainer)
+        per_step.append({k.name: k.launches - before[k.name]
+                         for k in kernels})
+    launches = {k.name: k.launches for k in kernels}
+    print(f"train: losses {losses}; launches per step {per_step}",
+          flush=True)
+    for step in per_step:
+        _check(step == PER_TRAIN_STEP,
+               f"launches per training step {step}, expected "
+               f"{PER_TRAIN_STEP}")
+    _check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    zero = [k for k, p in params.items() if p.grad_req != "null"
+            and not bool(p.grad().astorch().abs().max() > 0)]
+    _check(not zero, f"all-zero gradients: {zero[:5]}")
+    w_kernels = rig.weights()
+
+    # --- the same steps through the twins --------------------------------
+    saved = tune.kernels()
+    try:
+        for name, k in saved.items():
+            tune.register_kernel(name, k.plain)
+        for k in kernels:
+            k.launches = 0
+        rig.reset()
+        plain_losses = rig.train(TRAIN_STEPS)
+        _check(all(k.launches == 0 for k in kernels),
+               "the twin run launched a kernel")
+    finally:
+        for name, k in saved.items():
+            tune.register_kernel(name, k)
+    w_plain = rig.weights()
+    loss_rel, update_rel = _trajectory_gap(rig, (losses, w_kernels),
+                                           (plain_losses, w_plain))
+    print(f"train, kernels vs twins: losses {plain_losses}, max rel "
+          f"{loss_rel:.2e}; weight updates differ by {update_rel:.2e} "
+          f"(relative L2)", flush=True)
+    _check(loss_rel <= TRAIN_LOSS_REL_TOL,
+           f"training losses through kernels and twins differ by {loss_rel}")
+    _check(update_rel <= TRAIN_UPDATE_REL_TOL,
+           f"weight updates through kernels and twins differ by "
+           f"{update_rel}")
+
+    # --- TrainStep from the same weights ---------------------------------
+    rig.reset()
+    step = TrainStep(rig.net, _mean_ce(torch), optimizer="sgd",
+                     optimizer_params={"learning_rate": LR,
+                                       "momentum": MOMENTUM},
+                     example_inputs=[rig.x, rig.y])
+    step_losses = [float(v) for v in step.run_steps(TRAIN_STEPS, rig.x,
+                                                     rig.y).asnumpy()]
+    step_rel = max(abs(a - b) / abs(b) for a, b in zip(step_losses, losses))
+    print(f"TrainStep.run_steps({TRAIN_STEPS}): {step_losses}, max rel "
+          f"{step_rel:.2e} from the Trainer loop", flush=True)
+    _check(step_rel <= TRAINSTEP_LOSS_REL_TOL,
+           f"TrainStep losses differ from the Trainer loop by {step_rel}")
+    del step
+    return {"losses": losses, "plain_losses": plain_losses,
+            "trainstep_losses": step_losses, "per_step": per_step,
+            "launches": launches, "loss_rel": loss_rel,
+            "update_rel": update_rel, "trainstep_rel": step_rel}
+
+
+def _train_timing(torch, rig):
+    """img/s of the training step with the knob on (hand backward) and off
+    (cuDNN's), in turns; profiles and peak memory."""
+    trainer = rig.trainer()
+    img_s = {"1": [], "0": []}
+    peak = {}
+    for knob in ("1", "0", "0", "1"):
+        os.environ["MXTPU_FUSED_CONV_BWD"] = knob
+        rig.train(2, trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rig.train(5, trainer)
+        torch.cuda.synchronize()
+        img_s[knob].append(5 * BATCH / (time.perf_counter() - t0))
+        peak[knob] = torch.cuda.max_memory_allocated()
+    print(f"resnet50_v1 fp32 batch {BATCH} training: {img_s['1']} img/s "
+          f"with the hand conv3x3 backward, {img_s['0']} img/s with "
+          f"cuDNN's; peak {peak['1'] / 2 ** 20:.0f} / "
+          f"{peak['0'] / 2 ** 20:.0f} MiB", flush=True)
+    profiles = {}
+    for knob in ("1", "0"):
+        os.environ["MXTPU_FUSED_CONV_BWD"] = knob
+        profiles[knob] = phase_profile(
+            torch, lambda: rig.train(1, trainer),
+            f"training step, knob {knob}")
+    os.environ["MXTPU_FUSED_CONV_BWD"] = "1"
+    return {"img_per_s": img_s, "peak_bytes": peak, "profile": profiles}
+
+
+def kernels_line(rows, launches):
     out = []
-    for name in ("conv_bn_relu", "bn_add_act", "bn_act", "bn_apply"):
+    for name in ("conv_bn_relu", "bn_add_act", "bn_act", "bn_apply",
+                 "conv3x3"):
         mine = [r for r in rows if r["kernel"] == name]
         timed = [r for r in mine if "ms" in r]
 
@@ -542,8 +894,8 @@ def kernels_line(rows, served):
         ops = sum(r["per_forward"] for r in timed
                   if r["bound_by"] == "operations")
         out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": served[name],
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "float32"),
             "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
@@ -563,20 +915,37 @@ def main():
     import torch.nn.functional as F
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import _cuda
+    from incubator_mxnet_tpu_torch.parallel import conv_backward as cb
     from incubator_mxnet_tpu_torch.parallel import fused_conv as fc
+    from incubator_mxnet_tpu_torch.util import getenv_str
 
     report = {"card": phase_card(), "torch": torch.__version__,
-              "cuda": torch.version.cuda}
-    report["build"] = phase_build(fc, _cuda)
+              "cuda": torch.version.cuda,
+              "MXTPU_CONV_BWD_KERNEL": getenv_str("MXTPU_CONV_BWD_KERNEL")}
+    report["build"] = phase_build(_cuda, (fc, cb))
     device = torch.device("cuda", 0)
     shapes = resnet50_kernel_shapes(BATCH)
     for name, per in PER_FORWARD.items():
         _check(sum(shapes[name].values()) == per, f"shape table of {name}")
+    bwd_shapes = conv3x3_train_shapes(shapes)
+    _check(sum(bwd_shapes.values()) == PER_TRAIN_STEP["conv3x3"],
+           "shape table of conv3x3")
     print("kernel checks (kernel vs plain twin on the card):", flush=True)
     report["kernels"] = phase_kernels(torch, F, fc, shapes, device)
+    report["kernels"] += phase_conv_backward(torch, cb, bwd_shapes, device)
     torch.cuda.empty_cache()
     report["model"] = phase_model(torch, mx, fc)
-    line = kernels_line(report["kernels"], report["model"]["served_launches"])
+    torch.cuda.empty_cache()
+    kernels = [fc.conv_bn_relu, fc.bn_add_act, fc.bn_act, fc.bn_apply,
+               cb.conv3x3_bwd]
+    report["train"] = phase_train(torch, mx, kernels)
+    launches = {k.name: report["model"]["served_launches"].get(k.name, 0)
+                + report["train"]["launches"][k.name] for k in kernels}
+    report["launches"] = {"serve": report["model"]["served_launches"],
+                          "train": report["train"]["launches"]}
+    for name, n in launches.items():
+        _check(n > 0, f"{name} was never launched on the main paths")
+    line = kernels_line(report["kernels"], launches)
     report["kernels_line"] = line
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

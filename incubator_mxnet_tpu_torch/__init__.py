@@ -7,8 +7,10 @@ Same user surface as the JAX package (``mx.nd``, ``mx.autograd``,
 run where the JAX package runs Pallas kernels; on the CPU their plain
 PyTorch twins do.
 
-This release ports the ResNet-50 v1 inference path; the rest of the JAX
-package's surface follows slice by slice (ROADMAP.md).
+This release ports the ResNet-50 v1 inference path and its Gluon training
+step (autograd, BatchNorm statistics, losses, SGD/NAG, Trainer,
+TrainStep); the rest of the JAX package's surface follows slice by slice
+(ROADMAP.md).
 
 Typical use:
     import incubator_mxnet_tpu_torch as mx
@@ -30,6 +32,7 @@ from .base import MXNetError, MXTPUError
 from . import context
 from .context import Context, cpu, current_context, gpu, num_gpus
 from . import autograd
+from . import engine
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
@@ -38,6 +41,8 @@ from . import initializer
 from . import initializer as init
 from . import runtime
 from . import tune
+from . import optimizer
 from . import gluon
+from . import parallel
 from . import serve
 from . import convert

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``<repo>/.torch_ext/<name>-<digest>.so`` at
-first use and loaded with ``ctypes``; the digest covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+first use and loaded with ``ctypes``; the digest covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds
+and an unchanged one is reused.
 ``build`` starts one ``nvcc`` per source, all at once, and waits for all.
 Nothing here runs at import: the package imports on machines without a
 CUDA toolkit, where only the kernels' plain twins can run.
@@ -47,6 +48,8 @@ def _nvcc():
 def _target(name):
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -23,23 +23,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "simt_gemm.cuh"
+
 namespace {
-
-enum DType { kFloat32 = 0, kBFloat16 = 1 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float scale_bias(float z, float s, float b) {
   return __fadd_rn(__fmul_rn(z, s), b);
@@ -148,8 +134,6 @@ cudaError_t epilogue_dispatch(const void* z, const void* scale,
 // depend on the batch it was computed in.
 // ---------------------------------------------------------------------------
 
-constexpr int kBK = 8;
-
 template <typename T, int KS, int BM, int BN>
 __global__ void __launch_bounds__((BM / 8) * (BN / 8))
 conv_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -166,8 +150,8 @@ conv_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   static_assert(NT >= BM && NT % BM == 0 && A_PER * A_KSTEP == kBK, "A map");
   static_assert(B_PER * B_NSTEP == BN, "B map");
 
-  __shared__ __align__(16) float As[2][kBK][BM];
-  __shared__ __align__(16) float Bs[2][kBK][BN + 4];  // +4: no bank conflicts
+  __shared__ __align__(16) float As[2][kBK][BM + kPad];
+  __shared__ __align__(16) float Bs[2][kBK][BN + kPad];
 
   const int k = KS > 0 ? KS : k_rt;
   const int kk2 = k * k;
@@ -233,48 +217,20 @@ conv_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tx = tid % TX;
   const int ty = tid / TX;
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int nk = (K + kBK - 1) / kBK;
-  load_tiles(0);
-  store_tiles(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) load_tiles((t + 1) * kBK);
-#pragma unroll
-    for (int kq = 0; kq < kBK; ++kq) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kq][tx * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kq][tx * 4 + BM / 2]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kq][ty * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kq][ty * 4 + BN / 2]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (t + 1 < nk) store_tiles(buf ^ 1);
-    __syncthreads();
-  }
+  gemm_mainloop<BM, BN>(0, (K + kBK - 1) / kBK, load_tiles, store_tiles, As,
+                        Bs, acc, tx, ty);
 
   // epilogue in registers: cast, scale/bias, cast, ReLU, one store
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int m = m0 + tx * 4 + (i & 3) + (i >> 2) * (BM / 2);
+    const int m = m0 + row_of<BM>(tx, i);
     if (m >= M) continue;
     const int im = m / HW;
     const int p = m - im * HW;
     T* ob = out + static_cast<size_t>(im) * CO * HW + p;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int co = n0 + ty * 4 + (j & 3) + (j >> 2) * (BN / 2);
+      const int co = n0 + row_of<BN>(ty, j);
       if (co >= CO) continue;
       const float zq = to_f32(from_f32<T>(acc[i][j]));
       const T y = from_f32<T>(scale_bias(zq, __ldg(scale + co),

@@ -9,6 +9,9 @@ names, so ``.params`` files cross between the two packages.
 With ``MXTPU_FUSED_BLOCK`` on (the default) inference runs every v1
 residual leg through ``FusedConvBNReLU``: the hand conv+BN+ReLU kernel for
 the stride-1 legs, a plain conv plus the hand epilogue kernel otherwise.
+Training materializes each leg's conv output for the batch statistics and
+runs the BN(+add)+ReLU through ``FusedBNAddReLU`` (the hand epilogue
+kernels), with the running-stat update ``nn.BatchNorm`` would do.
 """
 from __future__ import annotations
 
@@ -98,16 +101,19 @@ class _ResUnit(HybridBlock):
                               if project and not preact else None)
 
     def _fused_bn_act(self, F, norm, z, residual):
-        """FusedBNAddReLU through a BatchNorm child (inference)."""
+        """FusedBNAddReLU through a BatchNorm child, plus the running-stat
+        update the layer would do in training."""
         training = autograd.is_training() and not norm._use_global_stats
         gamma, beta, rm, rv = _layer_args(norm, z, _BN_PARAMS)
         args = ((z, gamma, beta, rm, rv) if residual is None
                 else (z, gamma, beta, rm, rv, residual))
-        out, _mean, _var = F.FusedBNAddReLU(
+        out, mean, var = F.FusedBNAddReLU(
             *args, eps=norm._epsilon, momentum=norm._momentum,
             fix_gamma=not norm._scale,
             use_global_stats=norm._use_global_stats, axis=norm._axis,
             training=training)
+        if training:
+            norm._update_running_stats(rm, rv, mean, var)
         return out
 
     def _fused_unit(self, F, conv, norm, x, residual):

@@ -78,8 +78,8 @@ class Dense(HybridBlock):
 
 
 class BatchNorm(HybridBlock):
-    """Inference BatchNorm over the moving statistics (the running-stat
-    update of training mode comes with the training slice)."""
+    """BatchNorm: batch statistics and the running-stat update in training
+    (``autograd.is_training()``), the running statistics otherwise."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -118,12 +118,22 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         training = autograd.is_training() and not self._use_global_stats
-        out, _mean, _var = F.BatchNorm(
+        out, mean, var = F.BatchNorm(
             x, gamma, beta, running_mean, running_var, eps=self._epsilon,
             momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             training=training)
+        if training:
+            self._update_running_stats(running_mean, running_var, mean, var)
         return out
+
+    def _update_running_stats(self, running_mean, running_var, mean, var):
+        """The training-mode update, outside the recorded graph: running =
+        running * momentum + batch * (1 - momentum), written in place."""
+        with autograd.pause():
+            m = self._momentum
+            self.running_mean.set_data(running_mean * m + mean * (1 - m))
+            self.running_var.set_data(running_var * m + var * (1 - m))
 
 
 class Flatten(HybridBlock):

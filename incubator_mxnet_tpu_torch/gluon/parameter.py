@@ -1,13 +1,19 @@
 """Gluon Parameter / ParameterDict with deferred initialization.
 
 Counterpart of ``incubator_mxnet_tpu/gluon/parameter.py``. A Parameter owns
-one NDArray (one ``torch.Tensor``) on one device.
+one NDArray (one ``torch.Tensor``) on one device. Unless its grad_req is
+'null', that array is an attached autograd variable (``attach_grad``): a
+torch leaf that requires grad, with a gradient buffer that ``backward``
+writes or adds into. ``set_data`` writes the value in place where it can,
+so the leaf and its buffer survive.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
-from .. import initializer
+import torch
+
+from .. import autograd, initializer
 from ..base import MXNetError, dtype_torch
 from ..context import Context, current_context
 from ..ndarray import NDArray
@@ -35,7 +41,7 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True):
         self.name = name
-        self.grad_req = grad_req if differentiable else "null"
+        self._grad_req = grad_req if differentiable else "null"
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
         self.lr_mult = lr_mult
@@ -47,6 +53,23 @@ class Parameter:
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        self._grad_req = req
+        if self._data is not None:
+            self._attach()
+
+    def _attach(self):
+        """Give the data array the gradient buffer its grad_req asks for."""
+        if self._grad_req == "null":
+            autograd._mark(self._data, None, "null")
+        else:
+            self._data.attach_grad(self._grad_req)
 
     # -- init ---------------------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -71,9 +94,11 @@ class Parameter:
         filler = init or self.init or default_init
         if isinstance(filler, str):
             filler = initializer.create(filler)
-        filler(initializer.InitDesc(self.name), arr)
+        with autograd.pause():
+            filler(initializer.InitDesc(self.name), arr)
         self._data = arr
         self._deferred_init = None
+        self._attach()
 
     def _finish_deferred_init(self):
         if self._deferred_init is None:
@@ -117,10 +142,30 @@ class Parameter:
                              f".initialize()")
         return self._data
 
+    def list_data(self):
+        return [self.data()]
+
+    def list_ctx(self):
+        return [self.data().context] if self._data is not None else []
+
+    def grad(self, ctx=None):
+        d = self.data()
+        if d._grad is None:
+            raise MXNetError(f"Parameter {self.name} has grad_req='null'")
+        return d._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self._data is not None and self._data._grad is not None:
+            self._data.zero_grad()
+
     def set_data(self, data, ctx: Context | None = None):
-        """Replace the value, cast to this parameter's dtype. It stays on
-        the parameter's device; a parameter without data takes ``ctx``,
-        else its deferred-init context, else the current context."""
+        """Set the value, cast to this parameter's dtype, in place when the
+        shape matches. It stays on the parameter's device; a parameter
+        without data takes ``ctx``, else its deferred-init context, else
+        the current context."""
         src = data if isinstance(data, NDArray) else NDArray(data)
         if self._data is not None:
             device = self._data._data.device
@@ -129,17 +174,24 @@ class Parameter:
             device = (ctx or pending or current_context()).torch_device
             self.shape = src.shape
             self._deferred_init = None
-        tensor = src._data.to(device=device,
-                              dtype=dtype_torch(self.dtype))
+        tensor = src._data.detach().to(device=device,
+                                       dtype=dtype_torch(self.dtype))
+        if self._data is not None and self._data.shape == tuple(tensor.shape):
+            with torch.no_grad():
+                self._data._data.copy_(tensor)
+            return
         if self._data is None:
             self._data = NDArray(tensor)
         else:
             self._data._data = tensor
+        self._attach()
 
     def cast(self, dtype):
         self.dtype = dtype
         if self._data is not None:
-            self._data = self._data.astype(dtype)
+            with autograd.pause():
+                self._data = self._data.astype(dtype)
+            self._attach()
 
 
 class ParameterDict:
@@ -202,3 +254,12 @@ class ParameterDict:
         init = init or initializer.Uniform()
         for p in self.values():
             p.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
+
+    def setattr(self, name, value):
+        """Set an attribute (e.g. grad_req, lr_mult) on every parameter."""
+        for p in self.values():
+            setattr(p, name, value)

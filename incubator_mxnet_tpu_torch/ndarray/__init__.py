@@ -13,6 +13,7 @@ from . import random
 from ..ops import registry as _registry
 from ..ops import tensor_ops as _tensor_ops  # noqa: F401
 from ..ops import nn_ops as _nn_ops  # noqa: F401
+from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 
 
 def _make_wrapper(opdef):

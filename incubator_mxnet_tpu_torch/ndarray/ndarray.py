@@ -4,12 +4,18 @@ Counterpart of ``incubator_mxnet_tpu/ndarray/ndarray.py``. A torch tensor
 is already an asynchronous, device-resident buffer, so the NDArray is a
 thin holder: arithmetic goes through the op registry (``nd.*``), and
 MXNet's mutation model (``a[:] = x``) writes the tensor in place.
+
+Autograd: ``attach_grad`` makes the tensor a torch leaf with a gradient
+buffer (``autograd.py``); writes in place run under torch's grad mode only
+while recording, so a recorded array keeps its history and a leaf that
+requires grad can still be set outside ``record()``.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
+from .. import autograd
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import Context, current_context
 
@@ -32,7 +38,7 @@ def _to_tensor(data, dtype=None):
 class NDArray:
     """n-dimensional array on a device (cpu/gpu)."""
 
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, data, ctx: Context | None = None, dtype=None):
         if isinstance(data, NDArray):
@@ -44,6 +50,8 @@ class NDArray:
         if ctx is not None:
             data = data.to(ctx.torch_device)
         self._data = data
+        self._grad = None
+        self._grad_req = "null"
 
     # ---- basic properties -------------------------------------------------
     @property
@@ -67,6 +75,38 @@ class NDArray:
         return Context.from_torch(self._data.device)
 
     ctx = context
+
+    @property
+    def grad(self):
+        """The gradient buffer (None until attach_grad)."""
+        return self._grad
+
+    # ---- autograd ---------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Make this array a recorded variable with a zero gradient buffer
+        (reference ndarray.py attach_grad); dense storage only."""
+        if stype not in (None, "default"):
+            raise MXNetError(f"grad stype {stype!r} is not ported")
+        autograd._mark(self, NDArray(torch.zeros_like(self._data)), grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    def detach(self):
+        return NDArray(self._data.detach())
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad._data = torch.zeros_like(self._grad._data)
+
+    def _write_grad_mode(self):
+        """Grad mode for an in-place write into this array: recorded under
+        record() unless the array is a leaf that requires grad, whose
+        value is set, not computed."""
+        t = self._data
+        return torch.set_grad_enabled(autograd.is_recording() and not (
+            t.requires_grad and t.is_leaf))
 
     # ---- host transfer ----------------------------------------------------
     def asnumpy(self) -> _np.ndarray:
@@ -112,7 +152,8 @@ class NDArray:
         if isinstance(other, Context):
             return NDArray(self._data.to(other.torch_device, copy=True))
         if isinstance(other, NDArray):
-            other._data.copy_(self._data)
+            with other._write_grad_mode():
+                other._data.copy_(self._data)
             return other
         raise MXNetError(f"copyto: unsupported target {type(other)}")
 
@@ -120,7 +161,8 @@ class NDArray:
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key._data
-        return NDArray(self._data[key])
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return NDArray(self._data[key])
 
     def __setitem__(self, key, value):
         if isinstance(key, NDArray):
@@ -132,7 +174,8 @@ class NDArray:
         elif not isinstance(value, (int, float, bool)):
             value = _to_tensor(value).to(device=self._data.device,
                                          dtype=self._data.dtype)
-        self._data[key] = value
+        with self._write_grad_mode():
+            self._data[key] = value
 
     def __hash__(self):
         return id(self)

@@ -1,16 +1,16 @@
-"""Neural-network operators of the ResNet inference path: FullyConnected,
-Convolution, Pooling, BatchNorm (inference), FusedBNAddReLU,
-FusedConvBNReLU and Activation.
+"""Neural-network operators of the ResNet paths: FullyConnected,
+Convolution, Pooling, BatchNorm, FusedBNAddReLU, FusedConvBNReLU and
+Activation, in inference and in training (batch statistics).
 
 Counterpart of ``incubator_mxnet_tpu/ops/nn_ops.py`` (same op names,
 parameters and (out, mean, var) contracts). Where the JAX package leaves
 work to XLA the port leaves it to PyTorch (cuDNN/cuBLAS, TF32 off under
 the default "strict" fp32 mode); where it dispatches a tuned Pallas kernel
-(``tune.tuned_call``) the port dispatches its hand CUDA kernel.
+(``tune.tuned_call``) the port dispatches its hand CUDA kernel. Each hand
+kernel is a ``torch.autograd.Function``, so gradients flow through it.
 
-Not on this path, so not here: the space-to-depth stem rewrite (the JAX
-package takes it only on a TPU backend), the fused 3x3 conv backward
-("conv3x3") and batch statistics, which belong to the training slice.
+Not on these paths, so not here: the space-to-depth stem rewrite (the JAX
+package takes it only on a TPU backend).
 """
 from __future__ import annotations
 
@@ -22,9 +22,6 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from .. import tune
 from .registry import register
-
-_NOT_PORTED_TRAINING = ("batch statistics (training mode) are not ported "
-                        "yet; the port runs inference only")
 
 
 # --------------------------------------------------------------------------
@@ -57,7 +54,16 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 def _conv_core(data, weight, kernel, stride, dilate, pad, num_group):
     """Convolution dispatch shared by the Convolution op and the fused
-    conv+BN+ReLU paths; the port's plain convolutions are PyTorch's."""
+    conv+BN+ReLU paths: a 3x3 s1 p1 conv that ``fused_eligible`` admits
+    (behind MXTPU_FUSED_CONV_BWD) goes through the tuned ``conv3x3``
+    Function, whose backward is the hand dx+dW kernel; every other conv
+    is PyTorch's."""
+    kernel = tuple(int(k) for k in kernel)
+    from ..parallel import conv_backward
+    if conv_backward.fused_eligible(tuple(data.shape), tuple(weight.shape),
+                                    kernel, stride, dilate, pad, num_group):
+        return tune.tuned_call("conv3x3", conv_backward.conv3x3_custom, data,
+                               weight)
     return _CONV[len(kernel)](data, weight, stride=stride, padding=pad,
                               dilation=dilate, groups=num_group)
 
@@ -114,6 +120,40 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False, stride=(),
 # Normalization
 # --------------------------------------------------------------------------
 
+def _bn_batch_stats(data, red):
+    """Batch (mean, var) in f32 over the reduce axes ``red``, in one pass:
+    sum and sum of squares of the data shifted by a per-channel estimate
+    taken from the first slice of the reduce dims, which keeps
+    E[x^2] - E[x]^2 from cancelling when |mean| >> std. A 0-size batch
+    takes the plain reductions (NaN statistics, no crash)."""
+    n = math.prod(data.shape[i] for i in red)
+    if n == 0:
+        d = data.to(torch.float32)
+        mean = torch.mean(d, dim=red, keepdim=True)
+        return (mean.reshape(-1),
+                torch.mean(torch.square(d - mean), dim=red))
+    first = data.narrow(red[0], 0, 1)
+    c = torch.mean(first.to(torch.float32), dim=red, keepdim=True)
+    shifted = data.to(torch.float32) - c
+    s1 = torch.sum(shifted, dim=red)
+    s2 = torch.sum(torch.square(shifted), dim=red)
+    dmean = s1 / n
+    mean = c.reshape(-1) + dmean
+    var = torch.clamp_min(s2 / n - torch.square(dmean), 0.0)
+    return mean, var
+
+
+def _batch_or_moving_stats(data, ax, moving_mean, moving_var, training,
+                           use_global_stats):
+    """The statistics a BatchNorm applies: batch statistics in training
+    (unless use_global_stats), else the moving ones."""
+    if training and not use_global_stats:
+        red = tuple(i for i in range(data.dim()) if i != ax)
+        mean, var = _bn_batch_stats(data, red)
+        return mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+    return moving_mean, moving_var
+
+
 def _bn_scale_bias(gamma, beta, mean, var, eps, fix_gamma):
     """BN recomposed as one multiply-add epilogue (per-channel scale/bias)."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
@@ -161,14 +201,14 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False,
                training=False):
-    """Returns (out, mean, var) like the JAX op; inference uses the moving
-    statistics."""
+    """Returns (out, mean, var) like the JAX op: the batch statistics in
+    training, the moving ones otherwise. The Gluon layer owns the
+    running-stat update."""
     ax = axis % data.dim()
-    if training and not use_global_stats:
-        raise MXNetError(_NOT_PORTED_TRAINING)
-    scale, bias = _bn_scale_bias(gamma, beta, moving_mean, moving_var, eps,
-                                 fix_gamma)
-    return (_bn_apply(data, scale, bias, ax), moving_mean, moving_var)
+    mean, var = _batch_or_moving_stats(data, ax, moving_mean, moving_var,
+                                       training, use_global_stats)
+    scale, bias = _bn_scale_bias(gamma, beta, mean, var, eps, fix_gamma)
+    return (_bn_apply(data, scale, bias, ax), mean, var)
 
 
 @register(name="FusedBNAddReLU", aliases=("fused_bn_add_relu",),
@@ -180,10 +220,9 @@ def fused_bn_add_relu(data, gamma, beta, moving_mean, moving_var,
     """BatchNorm + optional residual add + ReLU as one op; the BN output is
     rounded to the data dtype BEFORE the residual add and ReLU."""
     ax = axis % data.dim()
-    if training and not use_global_stats:
-        raise MXNetError(_NOT_PORTED_TRAINING)
-    scale, bias = _bn_scale_bias(gamma, beta, moving_mean, moving_var, eps,
-                                 fix_gamma)
+    mean, var = _batch_or_moving_stats(data, ax, moving_mean, moving_var,
+                                       training, use_global_stats)
+    scale, bias = _bn_scale_bias(gamma, beta, mean, var, eps, fix_gamma)
     if ax == 1 and data.dim() == 4:
         from ..parallel import fused_conv  # noqa: F401 — registers kernels
         if residual is None:
@@ -196,7 +235,7 @@ def fused_bn_add_relu(data, gamma, beta, moving_mean, moving_var,
         if residual is not None:
             out = out + residual
         out = torch.relu(out)
-    return (out, moving_mean, moving_var)
+    return (out, mean, var)
 
 
 def _conv_bn_relu_infer(data, weight, scale, bias, kernel, stride, dilate,
@@ -227,21 +266,33 @@ def fused_conv_bn_relu(data, weight, gamma, beta, moving_mean, moving_var,
                        momentum=0.9, fix_gamma=True, use_global_stats=False,
                        training=False):
     """Convolution + BatchNorm + (optional residual add) + ReLU as one op.
-    Inference folds the moving stats into a per-channel scale/bias and
-    dispatches the fused forward kernel. Returns (out, mean, var)."""
+    Inference (or use_global_stats) folds the moving stats into a
+    per-channel scale/bias and dispatches the fused forward kernel;
+    training materializes the conv output for the batch statistics and
+    fuses the epilogue only. Returns (out, mean, var)."""
     nd_ = len(kernel)
     kernel = tuple(int(x) for x in kernel)
     stride = _tup(stride, nd_, 1)
     dilate = _tup(dilate, nd_, 1)
     pad = _tup(pad, nd_, 0)
-    if training and not use_global_stats:
-        raise MXNetError(_NOT_PORTED_TRAINING)
     from ..parallel import fused_conv  # noqa: F401 — registers the kernels
-    scale, bias = _bn_scale_bias(gamma, beta, moving_mean, moving_var, eps,
-                                 fix_gamma)
-    out = _conv_bn_relu_infer(data, weight, scale, bias, kernel, stride,
-                              dilate, pad, num_group, residual)
-    return (out, moving_mean, moving_var)
+    if not training or use_global_stats:
+        scale, bias = _bn_scale_bias(gamma, beta, moving_mean, moving_var,
+                                     eps, fix_gamma)
+        out = _conv_bn_relu_infer(data, weight, scale, bias, kernel, stride,
+                                  dilate, pad, num_group, residual)
+        return (out, moving_mean, moving_var)
+    z = _conv_core(data, weight, kernel, stride, dilate, pad,
+                   num_group).to(data.dtype)
+    mean, var = _batch_or_moving_stats(z, 1, moving_mean, moving_var, True,
+                                       False)
+    scale, bias = _bn_scale_bias(gamma, beta, mean, var, eps, fix_gamma)
+    if residual is None:
+        out = tune.tuned_call("bn_act", _bn_act_plain, z, scale, bias)
+    else:
+        out = tune.tuned_call("bn_add_act", _bn_add_act_plain, z, scale,
+                              bias, residual)
+    return (out, mean, var)
 
 
 # --------------------------------------------------------------------------

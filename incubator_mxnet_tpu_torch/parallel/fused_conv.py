@@ -1,6 +1,10 @@
 """Fused conv+BN+ReLU forward and BN-apply(+add)(+ReLU) epilogue: hand
 CUDA kernels for Hopper, their plain PyTorch twins, and the wrappers that
-launch them (``csrc/fused_conv.cu``, built by ``_cuda``).
+launch them (``csrc/fused_conv.cu``, built by ``_cuda``). Each wrapper is a
+``hand_kernel.HandKernel``: differentiable, with the autograd of its twin
+as the backward, as the JAX package's ``_make_bn_act`` and
+``_make_conv_bn_relu`` custom_vjp wrappers use the vjp of their XLA
+references.
 
 Counterpart of ``incubator_mxnet_tpu/parallel/fused_conv.py``. Numerics
 replicate ``ops/nn_ops.py`` in order: f32 accumulate, cast to the data
@@ -40,15 +44,14 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from .hand_kernel import (DTYPE_CODE, I32_MAX, HandKernel, check,
+                          check_data, raise_on)
 
 __all__ = ["bn_act_reference", "conv_bn_relu_reference", "HandKernel",
            "conv_bn_relu", "bn_act", "bn_add_act", "bn_apply",
            "register_kernels", "build"]
 
 _SOURCE = "fused_conv"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_I32_MAX = 2 ** 31 - 1
 
 
 # ---------------------------------------------------------------------------
@@ -101,46 +104,26 @@ def build():
     _lib()
 
 
-def _check(cond, what):
-    if not cond:
-        raise MXNetError(what)
-
-
-def _check_data(name, t, dtype=None):
-    _check(isinstance(t, torch.Tensor) and t.is_cuda,
-           f"{name}: expected a CUDA tensor, got {getattr(t, 'device', t)}")
-    _check(t.dtype in _DTYPE_CODE if dtype is None else t.dtype == dtype,
-           f"{name}: dtype {t.dtype} not taken by the kernel")
-    _check(t.is_contiguous(), f"{name}: kernel takes contiguous tensors")
-    _check(t.numel() <= _I32_MAX, f"{name}: more than 2^31-1 elements")
-
-
 def _per_channel(name, t, c, device):
     t = t.to(torch.float32).contiguous()
-    _check(t.device == device and t.numel() == c,
-           f"{name}: expected {c} values on {device}, got {tuple(t.shape)} "
-           f"on {t.device}")
+    check(t.device == device and t.numel() == c,
+          f"{name}: expected {c} values on {device}, got {tuple(t.shape)} "
+          f"on {t.device}")
     return t
 
 
-def _raise_on(lib, err, what):
-    if err:
-        msg = lib.mx_cuda_error_string(err).decode()
-        raise MXNetError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
 def _launch_epilogue(z, scale, bias, residual, relu):
-    _check_data("z", z)
-    _check(z.dim() == 4 and z.numel() > 0, f"z: expected non-empty NCHW, "
-           f"got {tuple(z.shape)}")
+    check_data("z", z)
+    check(z.dim() == 4 and z.numel() > 0, f"z: expected non-empty NCHW, "
+          f"got {tuple(z.shape)}")
     n, c, h, w = z.shape
     scale = _per_channel("scale", scale, c, z.device)
     bias = _per_channel("bias", bias, c, z.device)
     ptrs = [z]
     if residual is not None:
-        _check_data("residual", residual, z.dtype)
-        _check(residual.shape == z.shape and residual.device == z.device,
-               "residual: must match z in shape and device")
+        check_data("residual", residual, z.dtype)
+        check(residual.shape == z.shape and residual.device == z.device,
+              "residual: must match z in shape and device")
         ptrs.append(residual)
     out = torch.empty_like(z)
     vec = 16 // z.element_size()
@@ -151,28 +134,28 @@ def _launch_epilogue(z, scale, bias, residual, relu):
         err = lib.mx_bn_epilogue(
             z.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), z.numel(), h * w, c, _DTYPE_CODE[z.dtype],
+            out.data_ptr(), z.numel(), h * w, c, DTYPE_CODE[z.dtype],
             int(relu), vec, torch.cuda.current_stream(z.device).cuda_stream)
-    _raise_on(lib, err, "bn epilogue")
+    raise_on(lib, err, "bn epilogue")
     return out
 
 
 def _launch_conv(x, w, scale, bias, *, k, pad_lo, pad_hi):
-    _check_data("x", x)
-    _check_data("w", w, x.dtype)
-    _check(x.dim() == 4 and x.numel() > 0, f"x: expected non-empty NCHW, got "
-           f"{tuple(x.shape)}")
+    check_data("x", x)
+    check_data("w", w, x.dtype)
+    check(x.dim() == 4 and x.numel() > 0, f"x: expected non-empty NCHW, got "
+          f"{tuple(x.shape)}")
     n, c, h, wd = x.shape
     co = w.shape[0]
-    _check(tuple(w.shape) == (co, c, k, k) and w.device == x.device,
-           f"w: expected ({co}, {c}, {k}, {k}) on {x.device}, got "
-           f"{tuple(w.shape)} on {w.device}")
+    check(tuple(w.shape) == (co, c, k, k) and w.device == x.device,
+          f"w: expected ({co}, {c}, {k}, {k}) on {x.device}, got "
+          f"{tuple(w.shape)} on {w.device}")
     pad_lo, pad_hi = tuple(pad_lo), tuple(pad_hi)
-    _check(all(lo >= 0 and hi >= 0 and lo + hi == k - 1
-               for lo, hi in zip(pad_lo, pad_hi)),
-           f"pads {pad_lo}/{pad_hi}: the kernel takes stride-1 same-size "
-           f"convs only (pad_lo + pad_hi == k - 1)")
-    _check(n * co * h * wd <= _I32_MAX, "output: more than 2^31-1 elements")
+    check(all(lo >= 0 and hi >= 0 and lo + hi == k - 1
+              for lo, hi in zip(pad_lo, pad_hi)),
+          f"pads {pad_lo}/{pad_hi}: the kernel takes stride-1 same-size "
+          f"convs only (pad_lo + pad_hi == k - 1)")
+    check(n * co * h * wd <= I32_MAX, "output: more than 2^31-1 elements")
     scale = _per_channel("scale", scale, co, x.device)
     bias = _per_channel("bias", bias, co, x.device)
     out = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
@@ -181,34 +164,10 @@ def _launch_conv(x, w, scale, bias, *, k, pad_lo, pad_hi):
         err = lib.mx_conv_bn_relu(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), n, c, h, wd, co, k, pad_lo[0], pad_lo[1],
-            _DTYPE_CODE[x.dtype],
+            DTYPE_CODE[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "conv_bn_relu")
+    raise_on(lib, err, "conv_bn_relu")
     return out
-
-
-class HandKernel:
-    """The wrapper of one tuned name: twin on the CPU, kernel on the card.
-
-    ``plain`` is the twin with the wrapper's own signature; ``launches``
-    counts successful kernel launches and nothing else.
-    """
-
-    def __init__(self, name, launch, plain):
-        self.name = name
-        self._launch = launch
-        self.plain = plain
-        self.launches = 0
-
-    def __call__(self, *args, **kwargs):
-        if args[0].device.type == "cpu":
-            return self.plain(*args, **kwargs)
-        out = self._launch(*args, **kwargs)
-        self.launches += 1
-        return out
-
-    def __repr__(self):
-        return f"<HandKernel {self.name} launches={self.launches}>"
 
 
 conv_bn_relu = HandKernel("conv_bn_relu", _launch_conv,

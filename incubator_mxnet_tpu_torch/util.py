@@ -9,11 +9,22 @@ import os
 
 from .base import MXNetError
 
-__all__ = ["ENV_VARS", "EnvSpec", "getenv_bool", "getenv_str"]
+__all__ = ["ENV_VARS", "EnvSpec", "getenv_bool", "getenv_int", "getenv_str"]
 
 EnvSpec = collections.namedtuple("EnvSpec", ["default", "kind", "doc"])
 
 ENV_VARS = collections.OrderedDict([
+    ("MXNET_OPTIMIZER_AGGREGATION_SIZE", EnvSpec(4, "int",
+     "Max parameters fused into one multi-tensor optimizer dispatch by "
+     "gluon.Trainer; <=1 restores per-tensor updates.")),
+    ("MXTPU_CONV_BWD_KERNEL", EnvSpec("patch", "str",
+     "Conv backward kernel formulation: 'patch' (default) or 'taps'. The "
+     "two are TPU formulations of one function; the port has one CUDA "
+     "kernel for it, so on the card this knob has no effect.")),
+    ("MXTPU_FUSED_CONV_BWD", EnvSpec(False, "bool",
+     "Route 3x3 stride-1 pad-1 convolutions through the conv3x3 autograd "
+     "Function, whose backward is the hand fused dx+dW kernel on the card "
+     "(its plain twin on the CPU). Off: PyTorch's own conv backward.")),
     ("MXTPU_FUSED_BLOCK", EnvSpec(True, "bool",
      "Route gluon ResNet residual units through the fused "
      "conv+BN(+add)+ReLU ops (hand CUDA kernels on the card, their plain "
@@ -44,6 +55,19 @@ def getenv_bool(name):
     if raw is None:
         return spec.default
     return raw.strip().lower() not in _FALSY
+
+
+def getenv_int(name):
+    """Declared-default int read; an unparseable value falls back to the
+    default."""
+    spec = _spec(name)
+    raw = os.environ.get(name)
+    if raw is None:
+        return spec.default
+    try:
+        return int(raw)
+    except ValueError:
+        return spec.default
 
 
 def getenv_str(name):

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from incubator_mxnet_tpu.parallel import fused_conv as jfc
 from incubator_mxnet_tpu_torch import tune
 from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.parallel import conv_backward  # noqa: F401
 from incubator_mxnet_tpu_torch.parallel import fused_conv as tfc
 
 _EPI_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
@@ -139,7 +140,7 @@ def test_wrappers_run_twins_on_cpu_without_launching():
         via_tune.numpy(), tfc.bn_act_reference(tz, ts, tb, relu=False).numpy())
     assert {k: v.launches for k, v in tune.kernels().items()} == before
     assert set(before) == {"conv_bn_relu", "bn_act", "bn_add_act",
-                           "bn_apply"}
+                           "bn_apply", "conv3x3"}
 
 
 @pytest.mark.parametrize("name", ["conv_bn_relu", "bn_act", "bn_add_act",

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,7 +76,8 @@ def test_import_and_cpu_forward_without_jax():
         res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("rel", ["parallel/fused_conv.py", "tune.py"])
+@pytest.mark.parametrize("rel", ["parallel/fused_conv.py", "tune.py",
+                                 "parallel/hand_kernel.py"])
 def test_kernel_dispatch_has_no_fallback(rel):
     """No try/except around a launch and no environment switch in the
     kernel wrappers or the dispatcher: on the card a kernel runs or the
@@ -84,6 +86,25 @@ def test_kernel_dispatch_has_no_fallback(rel):
     tree = ast.parse(src)
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
     assert "environ" not in src and "getenv" not in src
+
+
+def test_conv_backward_reads_its_knob_only_in_the_gate():
+    """The conv3x3 backward wrapper has no try/except, and the one knob it
+    reads (MXTPU_FUSED_CONV_BWD) is read only by ``fused_eligible``, which
+    decides whether a conv takes the conv3x3 Function on the CPU and the
+    card alike; nothing switches the card from the kernel to its twin."""
+    src = open(os.path.join(PKG, "parallel/conv_backward.py"),
+               encoding="utf-8").read()
+    tree = ast.parse(src)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert "environ" not in src
+    readers = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for n in ast.walk(fn):
+                if isinstance(n, ast.Name) and n.id.startswith("getenv"):
+                    readers.add(fn.name)
+    assert readers == {"fused_eligible"}
 
 
 def test_default_context_is_gpu_and_never_falls_back():
@@ -97,14 +118,25 @@ def test_default_context_is_gpu_and_never_falls_back():
 
 
 def test_autograd_recording_is_not_silently_ported():
+    """Recording and backward are ported and really record; what is not
+    ported yet (a custom autograd.Function) raises instead of silently
+    doing nothing."""
     assert not mx.autograd.is_training()
     with mx.autograd.train_mode():
         assert mx.autograd.is_training()
     assert not mx.autograd.is_training()
+    x = mx.nd.array([1.0, 2.0], ctx=mx.cpu())
+    x.attach_grad()
+    with mx.autograd.record():
+        assert mx.autograd.is_recording() and mx.autograd.is_training()
+        y = x * x
+    assert not mx.autograd.is_recording()
+    y.backward()
+    np.testing.assert_array_equal(x.grad.asnumpy(), [2.0, 4.0])
+    with pytest.raises(mx.MXNetError, match="no recorded graph"):
+        mx.autograd.backward([x * 2.0])
     with pytest.raises(mx.MXNetError, match="not ported"):
-        mx.autograd.record()
-    with pytest.raises(mx.MXNetError, match="not ported"):
-        mx.autograd.backward([])
+        mx.autograd.Function()
 
 
 def test_strict_fp32_turns_tf32_off():
@@ -124,6 +156,8 @@ def test_strict_fp32_turns_tf32_off():
 def test_kernel_sources_ship_with_the_package():
     from incubator_mxnet_tpu_torch import _cuda
     assert (_cuda.CSRC / "fused_conv.cu").is_file()
+    assert (_cuda.CSRC / "conv_backward.cu").is_file()
+    assert (_cuda.CSRC / "simt_gemm.cuh").is_file()
     assert _cuda.BUILD_DIR.name == ".torch_ext"
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert ".torch_ext/" in ignored
