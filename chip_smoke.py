@@ -32,13 +32,26 @@ Phases, each of which fails the run (exit code != 0, no result line):
      same steps through the twins give the same losses and weights, and
      that TrainStep.run_steps(3) gives the same losses;
   9. time the training step (img/s) with the knob on (hand backward) and
-     off (cuDNN's), with a torch.profiler breakdown and peak memory.
+     off (cuDNN's), with a torch.profiler breakdown and peak memory;
+ 10. hold the three flash-attention kernels (fa_fwd, fa_bwd_dq with a
+     non-zero dlse, fa_bwd_dkv) against their twins: bf16 at the flagship
+     shape (BH 512, T 2048, D 64, causal), fp32 at (64, 512, 64) causal and
+     not, and Tq != Tk non-causal in both dtypes; reruns bit-identical;
+     time kernel, twin and PyTorch's flash-attention ops;
+ 11. the Transformer-LM flagship training step (12 x 1024, 16 heads,
+     d_ff 4096, vocab 32000, T 2048, batch 32, bf16, remat, Adam lr 1e-3)
+     through models.TransformerLM.make_train_step: launches per step
+     fa_fwd 24, fa_bwd_dq 12, fa_bwd_dkv 12; finite loss; no all-zero
+     gradient among the 124 parameters; n_steps=3 equals 3 single steps;
+     3 steps through the twins against the kernels (2 layers, full width);
+     tokens/s, MFU, peak memory and a torch.profiler breakdown.
 It prints the card line, the kernels line and, last,
 {"ok": true, "device": {...}}; details go to chiprun_out/chip_smoke.json.
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -53,9 +66,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FMA FLOP/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FMA FLOP/s,
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 L2_BYTES = 50 * 2 ** 20
 
 BATCH = 32
@@ -68,17 +83,52 @@ PER_TRAIN_STEP = {"conv3x3": 16, "bn_act": 32, "bn_add_act": 16,
                   "bn_apply": 5, "conv_bn_relu": 0}
 TRAIN_STEPS = 3
 LR, MOMENTUM = 0.01, 0.9
-SOURCES = ("fused_conv", "conv_backward")
+SOURCES = ("fused_conv", "conv_backward", "flash_attention")
 SOURCE = {name: "incubator_mxnet_tpu_torch/csrc/fused_conv.cu"
           for name in PER_FORWARD}
 SOURCE["conv3x3"] = "incubator_mxnet_tpu_torch/csrc/conv_backward.cu"
+for _fa in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+    SOURCE[_fa] = "incubator_mxnet_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {
     "conv_bn_relu": "incubator_mxnet_tpu/parallel/fused_conv.py:255",
     "bn_add_act": "incubator_mxnet_tpu/parallel/fused_conv.py:108",
     "bn_act": "incubator_mxnet_tpu/parallel/fused_conv.py:103",
     "bn_apply": "incubator_mxnet_tpu/parallel/fused_conv.py:103",
     "conv3x3": "incubator_mxnet_tpu/parallel/conv_backward.py:126",
+    "fa_fwd": "incubator_mxnet_tpu/parallel/flash_attention.py:75",
+    "fa_bwd_dq": "incubator_mxnet_tpu/parallel/flash_attention.py:201",
+    "fa_bwd_dkv": "incubator_mxnet_tpu/parallel/flash_attention.py:265",
 }
+# the Transformer-LM flagship (bench.py:322-330 bench_transformer)
+LM_CONFIG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=12,
+                 d_ff=4096, max_len=2048, dtype="bfloat16", remat=True)
+LM_BATCH, LM_LR = 32, 1e-3
+LM_TIMED_STEPS, LM_WARMUP_STEPS = 5, 2
+LM_TWIN_LAYERS = 2
+PER_LM_STEP = {"fa_fwd": 24, "fa_bwd_dq": 12, "fa_bwd_dkv": 12}
+# flash kernels vs their twins (the same block recurrence at the JAX
+# package's 1024-row blocks, in PyTorch): the kernels run 64-row tiles,
+# so the online softmax rescales at other points and the bf16 roundings of
+# P and dS (before their products, on both sides) may go the other way:
+# max|kernel - twin| <= tol * max|twin| for out, dq, dk, dv and delta, and
+# |lse_kernel - lse_twin| <= 1e-5 (float32 in both dtypes: the bf16
+# products are exact in f32). Set at about 2x (bf16) and 10x (fp32, lse)
+# the worst errors of the first runs on the card (4.9e-3 bf16 dv at the
+# flagship shape, 8e-7 fp32, 9.5e-7 lse); the first gates were 2e-2 /
+# 1e-4 and lse 1e-3 / 1e-5.
+FA_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FA_LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
+# the flagship through the twins vs through the kernels, 3 Adam steps at
+# full width and 2 layers: each step's loss within 1e-3 relative, and
+# ||w_kernels - w_twins|| <= 0.1 ||w_twins - w_0|| over all parameters.
+# The first run on the card measured 1.0e-5 and 0.027: the bf16 weights
+# take Adam updates of a few bf16 ulps, so a weight that the two sides
+# round the other way moves its update by a whole ulp.
+LM_LOSS_REL_TOL = 1e-3
+LM_UPDATE_REL_TOL = 0.1
+# make_train_step(n_steps=3) vs 3 single steps: the same kernels and
+# cuBLAS calls in the same order, so the same loss and weights to 1e-6.
+LM_NSTEPS_REL_TOL = 1e-6
 # tolerances, kernel vs twin on the same inputs:
 #  epilogues: the kernel rounds the multiply and the add separately, as the
 #  twin's two PyTorch ops do, so both dtypes are bit-exact; 1 ulp allowed.
@@ -529,7 +579,18 @@ _CATEGORIES = (("conv_bn_relu_kernel", "conv_bn_relu (hand)"),
                ("gemm", "cuBLAS matmul"), ("pool", "pooling"))
 
 
-def phase_profile(torch, fn, label, iters=3):
+_LM_CATEGORIES = (("fa_fwd_kernel", "flash attention fwd (hand)"),
+                  ("fa_bwd_dq_kernel", "flash attention dq (hand)"),
+                  ("fa_bwd_dkv_kernel", "flash attention dk/dv (hand)"),
+                  ("gemm", "cuBLAS matmul"), ("xmma", "cuBLAS matmul"),
+                  ("nvjet", "cuBLAS matmul"), ("cutlass", "cuBLAS matmul"),
+                  ("softmax", "log_softmax"), ("foreach", "optimizer"),
+                  ("embedding", "embedding"), ("index", "embedding"),
+                  ("memcpy", "copies"), ("reduce", "reductions (LayerNorm, "
+                                                    "loss)"))
+
+
+def phase_profile(torch, fn, label, iters=3, categories=_CATEGORIES):
     """Device time by kernel over `iters` calls of fn() under
     torch.profiler, and the device's idle share of the wall time (both
     under the profiler's own overhead)."""
@@ -552,7 +613,7 @@ def phase_profile(torch, fn, label, iters=3):
     by_cat = Counter()
     for key, ms, _ in kernels:
         low = key.lower()
-        cat = next((c for tag, c in _CATEGORIES if tag in low),
+        cat = next((c for tag, c in categories if tag in low),
                    "other elementwise")
         by_cat[cat] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:12]
@@ -746,14 +807,15 @@ def phase_train(torch, mx, kernels):
     return dict(checks, **_train_timing(torch, rig))
 
 
-def _trajectory_gap(rig, a, b):
+def _trajectory_gap(init, a, b):
     """(max relative loss gap, update gap in relative L2) of two
-    (losses, weights) runs from the rig's initial weights."""
+    (losses, weights) runs from the same initial weights ``init``."""
     (la, wa), (lb, wb) = a, b
     loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
-    num = sum(float((wa[k] - wb[k]).double().pow(2).sum()) for k in rig.init)
-    den = sum(float((wb[k] - rig.init[k]).double().pow(2).sum())
-              for k in rig.init)
+    num = sum(float((wa[k].double() - wb[k].double()).pow(2).sum())
+              for k in init)
+    den = sum(float((wb[k].double() - init[k].double()).pow(2).sum())
+              for k in init)
     return loss_rel, math.sqrt(num / den)
 
 
@@ -765,7 +827,7 @@ def _train_rerun_spread(rig):
     for _ in range(2):
         rig.reset()
         runs.append((rig.train(TRAIN_STEPS), rig.weights()))
-    loss_rel, update_rel = _trajectory_gap(rig, *runs)
+    loss_rel, update_rel = _trajectory_gap(rig.init, *runs)
     print(f"train, the kernel path twice with cuDNN's default algorithms: "
           f"losses {runs[0][0]} / {runs[1][0]}, max rel {loss_rel:.2e}; "
           f"updates differ by {update_rel:.2e} (relative L2)", flush=True)
@@ -818,7 +880,7 @@ def _train_checks(torch, rig, kernels):
         for name, k in saved.items():
             tune.register_kernel(name, k)
     w_plain = rig.weights()
-    loss_rel, update_rel = _trajectory_gap(rig, (losses, w_kernels),
+    loss_rel, update_rel = _trajectory_gap(rig.init, (losses, w_kernels),
                                            (plain_losses, w_plain))
     print(f"train, kernels vs twins: losses {plain_losses}, max rel "
           f"{loss_rel:.2e}; weight updates differ by {update_rel:.2e} "
@@ -879,12 +941,345 @@ def _train_timing(torch, rig):
     return {"img_per_s": img_s, "peak_bytes": peak, "profile": profiles}
 
 
+# ---------------------------------------------------------------------------
+# flash attention: kernels vs twins, and the Transformer-LM flagship
+# ---------------------------------------------------------------------------
+
+def _causal_pairs(tq, tk, causal):
+    """(q, kv) pairs the attention weighs: all, or those with q >= kv."""
+    if not causal:
+        return tq * tk
+    return sum(min(i + 1, tk) for i in range(tq))
+
+
+def _fa_work(name, bh, tq, tk, d, causal, itemsize):
+    """(FLOPs, bytes) one call needs: 2 FLOPs per multiply-add of each
+    (BH, pairs, D) product (fwd 2, dq 3, dk/dv 4), each input read once
+    and each output written once (lse, dlse, delta are float32 rows)."""
+    pairs = bh * _causal_pairs(tq, tk, causal)
+    products = {"fa_fwd": 2, "fa_bwd_dq": 3, "fa_bwd_dkv": 4}[name]
+    q_el, k_el, row = bh * tq * d, bh * tk * d, bh * tq * 4
+    nbytes = {"fa_fwd": (q_el * 2 + k_el * 2) * itemsize + row,
+              "fa_bwd_dq": (q_el * 4 + k_el * 2) * itemsize + 3 * row,
+              "fa_bwd_dkv": (q_el * 2 + k_el * 4) * itemsize + 2 * row}[name]
+    return 2.0 * products * pairs * d, nbytes
+
+
+def _fa_inputs(torch, case, gen, device):
+    dt, bh, tq, tk, d, causal = case
+    dtype = getattr(torch, dt)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    return {"q": randn(bh, tq, d), "k": randn(bh, tk, d),
+            "v": randn(bh, tk, d), "do": randn(bh, tq, d),
+            "dlse": 0.1 * torch.randn((bh, tq), generator=gen,
+                                      device=device)}
+
+
+def _fa_library(torch, name, case, x, sm):
+    """One PyTorch call beside each kernel, bf16 only: aten's flash
+    attention forward (returns the logsumexp too) and its backward (dq, dk
+    and dv in one call, so both backward rows carry it)."""
+    dt, bh, tq, tk, d, causal = case
+    if dt != "bfloat16" or tq != tk:
+        return None
+    aten = torch.ops.aten
+    q4, k4, v4, do4 = (x[n].view(1, bh, -1, d) for n in ("q", "k", "v", "do"))
+    fwd = aten._scaled_dot_product_flash_attention
+    if name == "fa_fwd":
+        return lambda: fwd(q4, k4, v4, 0.0, causal, False, scale=sm)
+    r = fwd(q4, k4, v4, 0.0, causal, False, scale=sm)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, r[0], r[1], r[2], r[3], r[4], r[5], 0.0, causal,
+        r[6], r[7], scale=sm)
+
+
+def phase_flash_kernels(torch, fa, device):
+    """fa_fwd, fa_bwd_dq (non-zero dlse) and fa_bwd_dkv vs their twins on
+    the same inputs; reruns bit-identical; times of kernel, twin and the
+    library call. Rows on the flagship path carry their launches per
+    step."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    head = LM_CONFIG["d_model"] // LM_CONFIG["n_heads"]
+    flagship = ("bfloat16", LM_BATCH * LM_CONFIG["n_heads"],
+                LM_CONFIG["max_len"], LM_CONFIG["max_len"], head, True)
+    timed = [flagship, ("float32", 64, 512, 512, 64, True),
+             ("float32", 64, 512, 512, 64, False),
+             ("float32", 16, 256, 512, 64, False),
+             ("bfloat16", 16, 256, 512, 64, False)]
+    # checked, not timed: ragged last tiles (T = 200 is 3 tiles + 8 rows),
+    # a head dim padded in shared memory (40 -> 64), the 128-wide
+    # templates, and causal with Tq != Tk
+    checked = [("bfloat16", 8, 200, 200, 40, True),
+               ("bfloat16", 8, 256, 256, 128, True),
+               ("float32", 8, 200, 200, 128, False),
+               ("float32", 8, 128, 200, 64, True)]
+    rows = []
+    for case in timed + checked:
+        dt, bh, tq, tk, d, causal = case
+        sm = 1.0 / math.sqrt(d)
+        x = _fa_inputs(torch, case, gen, device)
+        q, k, v, do, dlse = x["q"], x["k"], x["v"], x["do"], x["dlse"]
+        out, lse = fa.fa_fwd(q, k, v, causal, sm)
+        dq, delta = fa.fa_bwd_dq(q, k, v, do, lse, out, dlse, causal, sm)
+        dk, dv = fa.fa_bwd_dkv(k, v, q, do, lse, delta, causal, sm)
+        reruns = (fa.fa_fwd(q, k, v, causal, sm)
+                  + fa.fa_bwd_dq(q, k, v, do, lse, out, dlse, causal, sm)
+                  + fa.fa_bwd_dkv(k, v, q, do, lse, delta, causal, sm))
+        r_out, r_lse = fa.fa_fwd.plain(q, k, v, causal, sm)
+        r_dq, r_delta = fa.fa_bwd_dq.plain(q, k, v, do, lse, out, dlse,
+                                           causal, sm)
+        r_dk, r_dv = fa.fa_bwd_dkv.plain(k, v, q, do, lse, delta, causal,
+                                         sm)
+        torch.cuda.synchronize()
+        mine = (out, lse, dq, delta, dk, dv)
+        identical = all(torch.equal(a, b) for a, b in zip(mine, reruns))
+        _check(identical, f"flash {case}: a rerun changed an output")
+        errs = {}
+        for label, got, ref in (("out", out, r_out), ("dq", dq, r_dq),
+                                ("delta", delta, r_delta), ("dk", dk, r_dk),
+                                ("dv", dv, r_dv)):
+            _check(torch.isfinite(got.float()).all().item(),
+                   f"flash {case}: non-finite {label}")
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            errs[label] = (err, err / max(scale, 1e-30))
+            _check(errs[label][1] <= FA_REL_TOL[dt],
+                   f"flash {case}: max|{label} - twin| {err:.3e} is "
+                   f"{errs[label][1]:.2e} of max|twin| {scale:.3e} "
+                   f"(tol {FA_REL_TOL[dt]})")
+        lse_err = float((lse - r_lse).abs().max())
+        _check(lse_err <= FA_LSE_TOL[dt],
+               f"flash {case}: max|lse - twin| {lse_err:.3e} "
+               f"(tol {FA_LSE_TOL[dt]})")
+        calls = {
+            "fa_fwd": (fa.fa_fwd, (q, k, v, causal, sm), ("out",)),
+            "fa_bwd_dq": (fa.fa_bwd_dq, (q, k, v, do, lse, out, dlse, causal,
+                                         sm), ("dq", "delta")),
+            "fa_bwd_dkv": (fa.fa_bwd_dkv, (k, v, q, do, lse, delta, causal,
+                                           sm), ("dk", "dv"))}
+        on_path = case == flagship
+        line = [f"  flash {dt:8s} bh={bh} tq={tq} tk={tk} d={d} "
+                f"causal={causal}: lse err {lse_err:.2e}, "
+                + ", ".join(f"{n} rel {e[1]:.2e}" for n, e in errs.items())]
+        itemsize = 2 if dt == "bfloat16" else 4
+        for name, (kern, args, outs) in calls.items():
+            flops, nbytes = _fa_work(name, bh, tq, tk, d, causal, itemsize)
+            t_ops = flops / (BF16_FLOP_PER_S if dt == "bfloat16"
+                             else FP32_FLOP_PER_S) * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"kernel": name, "shape": [bh, tq, tk, d],
+                   "causal": causal, "dtype": dt,
+                   "max_abs_err": max(errs[o][0] for o in outs),
+                   "rel_err": max(errs[o][1] for o in outs),
+                   "lse_abs_err": lse_err, "bit_identical_rerun": identical,
+                   "per_forward": PER_LM_STEP[name] if on_path else 0,
+                   "gflop": flops / 1e9, "bytes": nbytes,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes"}
+            rows.append(row)
+            if case not in timed:
+                continue
+            sets = [args]
+            row["ms"] = _graph_ms(torch, kern, sets, reps=10)
+            row["plain_ms"] = _graph_ms(torch, kern.plain, sets, reps=3)
+            lib = _fa_library(torch, name, case, x, sm)
+            row["library_ms"] = (None if lib is None
+                                 else _graph_ms(torch, lambda: lib(), [()],
+                                                reps=10))
+            row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+            line.append(f"    {name:10s} ms={row['ms']:.4f} "
+                        f"plain={row['plain_ms']:.4f} library="
+                        + (f"{row['library_ms']:.4f}" if lib else "none")
+                        + f" bound={row['bound_ms']:.4f} ({row['bound_by']})"
+                        f" {row['tflops']:.1f} TFLOP/s")
+        print("\n".join(line), flush=True)
+        del x, q, k, v, do, out, dq, dk, dv, reruns
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _lm_batch(vocab):
+    """bench.py:337-340: seeded tokens, targets rolled by -1."""
+    rng = np.random.RandomState(SEED)
+    tokens = rng.randint(0, vocab, (LM_BATCH, LM_CONFIG["max_len"])) \
+        .astype(np.int32)
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def _lm_flops_per_step(params):
+    """bench.py:356-357: 6 * (matmul + embedding params) * tokens + the
+    attention term 12 * layers * B * T^2 * d_model (remat recompute not
+    counted)."""
+    cfg = LM_CONFIG
+    n_matmul = sum(p.numel() for k, p in params.items()
+                   if k.endswith(("wq", "wk", "wv", "wo", "w_in", "w_out")))
+    tokens = LM_BATCH * cfg["max_len"]
+    return (6 * (n_matmul + params["embed"].numel()) * tokens
+            + 12 * cfg["n_layers"] * LM_BATCH * cfg["max_len"] ** 2
+            * cfg["d_model"])
+
+
+def phase_transformer(torch, fa, device):
+    """The flagship training step through the port's entry points."""
+    from incubator_mxnet_tpu_torch import tune
+    from incubator_mxnet_tpu_torch.models import (TransformerConfig,
+                                                  TransformerLM)
+    from incubator_mxnet_tpu_torch.parallel import make_mesh
+
+    kernels = [fa.fa_fwd, fa.fa_bwd_dq, fa.fa_bwd_dkv]
+    mesh = make_mesh({"dp": 1}, devices=[device])
+    model = TransformerLM(TransformerConfig(**LM_CONFIG))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    step, shard, init_opt = model.make_train_step(mesh, lr=LM_LR,
+                                                  use_sp=False)
+    init = shard(model.init_params(gen, device=device))
+    n_params = 4 + 10 * LM_CONFIG["n_layers"]        # 124 at 12 layers
+    _check(len(init) == n_params,
+           f"{len(init)} parameters, expected {n_params}")
+    tokens, targets = _lm_batch(LM_CONFIG["vocab_size"])
+    flops = _lm_flops_per_step(init)
+
+    # --- main path: one step, launches counted -------------------------
+    for k in kernels:
+        k.launches = 0
+    params, opt, loss = step(init, init_opt(init), tokens, targets, 0)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"transformer step: loss {float(loss):.6f}, launches {launches}",
+          flush=True)
+    _check(launches == PER_LM_STEP,
+           f"launches per step {launches}, expected {PER_LM_STEP}")
+    _check(math.isfinite(float(loss)), f"loss {float(loss)}")
+
+    # --- every parameter gets a gradient ---------------------------------
+    leaves = {k: w.detach().requires_grad_(True) for k, w in init.items()}
+    grads = torch.autograd.grad(model.loss(leaves, tokens, targets),
+                                list(leaves.values()))
+    zero = [k for k, g in zip(leaves, grads)
+            if not bool(g.float().abs().max() > 0)]
+    _check(not zero, f"all-zero gradients: {zero[:5]}")
+    del leaves, grads
+
+    # --- n_steps=3 vs three single steps --------------------------------
+    singles = []
+    p, o = init, init_opt(init)
+    for i in range(3):
+        p, o, l = step(p, o, tokens, targets, i)
+        singles.append(float(l))
+    multi, _, _ = model.make_train_step(mesh, lr=LM_LR, use_sp=False,
+                                        n_steps=3)
+    pm, _, lm = multi(init, init_opt(init), tokens, targets, 0)
+    nsteps_loss_rel, nsteps_update_rel = _trajectory_gap(
+        init, ([float(lm)], pm), ([singles[-1]], p))
+    print(f"n_steps=3: loss {float(lm):.6f} vs single steps {singles}; "
+          f"loss rel {nsteps_loss_rel:.2e}, params rel "
+          f"{nsteps_update_rel:.2e}", flush=True)
+    _check(nsteps_loss_rel <= LM_NSTEPS_REL_TOL
+           and nsteps_update_rel <= LM_NSTEPS_REL_TOL,
+           "make_train_step(n_steps=3) differs from 3 single steps")
+    del p, o, pm
+
+    # --- timing, peak memory, profile -------------------------------------
+    p, o = init, init_opt(init)
+    for i in range(LM_WARMUP_STEPS):
+        p, o, l = step(p, o, tokens, targets, i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(LM_TIMED_STEPS):
+        p, o, l = step(p, o, tokens, targets, LM_WARMUP_STEPS + i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LM_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = LM_BATCH * LM_CONFIG["max_len"] / step_s
+    mfu = flops / step_s / BF16_FLOP_PER_S
+    print(f"transformer flagship bf16 b{LM_BATCH} T{LM_CONFIG['max_len']}: "
+          f"{step_s * 1e3:.2f} ms/step, {tok_s:.1f} tokens/s, MFU "
+          f"{mfu:.4f} ({flops / 1e12:.2f} TFLOP/step over "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s), loss {float(l):.6f}, "
+          f"peak {peak / 2 ** 30:.2f} GiB", flush=True)
+    state = {"p": p, "o": o, "i": LM_WARMUP_STEPS + LM_TIMED_STEPS}
+
+    def one_step():
+        state["p"], state["o"], _ = step(state["p"], state["o"], tokens,
+                                         targets, state["i"])
+        state["i"] += 1
+
+    profile = phase_profile(torch, one_step, "transformer step", iters=2,
+                            categories=_LM_CATEGORIES)
+    del p, o, state, init
+
+    # --- twins vs kernels, 2 layers at full width -------------------------
+    twin = _lm_twin_trajectory(torch, tune, kernels, mesh)
+    return {"loss_first_step": float(loss), "launches": launches,
+            "single_step_losses": singles, "n_steps_loss": float(lm),
+            "n_steps_loss_rel": nsteps_loss_rel,
+            "n_steps_update_rel": nsteps_update_rel,
+            "ms_per_step": step_s * 1e3, "tokens_per_s": tok_s, "mfu": mfu,
+            "flop_per_step": flops, "peak_bytes": peak, "profile": profile,
+            "twin": twin}
+
+
+def _lm_twin_trajectory(torch, tune, kernels, mesh):
+    from incubator_mxnet_tpu_torch.models import (TransformerConfig,
+                                                  TransformerLM)
+    cfg = dict(LM_CONFIG, n_layers=LM_TWIN_LAYERS)
+    model = TransformerLM(TransformerConfig(**cfg))
+    gen = torch.Generator(device=mesh.devices[0])
+    gen.manual_seed(SEED + 1)
+    step, shard, init_opt = model.make_train_step(mesh, lr=LM_LR,
+                                                  use_sp=False)
+    init = shard(model.init_params(gen, device=mesh.devices[0]))
+    tokens, targets = _lm_batch(cfg["vocab_size"])
+
+    def run():
+        p, o, losses = init, init_opt(init), []
+        for i in range(3):
+            p, o, l = step(p, o, tokens, targets, i)
+            losses.append(float(l))
+        return losses, p
+
+    kern_run = run()
+    saved = tune.kernels()
+    try:
+        for name, k in saved.items():
+            tune.register_kernel(name, k.plain)
+        for k in kernels:
+            k.launches = 0
+        twin_run = run()
+        _check(all(k.launches == 0 for k in kernels),
+               "the twin run launched a kernel")
+    finally:
+        for name, k in saved.items():
+            tune.register_kernel(name, k)
+    loss_rel, update_rel = _trajectory_gap(init, kern_run, twin_run)
+    print(f"transformer {LM_TWIN_LAYERS} layers, kernels vs twins: losses "
+          f"{kern_run[0]} / {twin_run[0]}, max rel {loss_rel:.2e}; updates "
+          f"differ by {update_rel:.2e} (relative L2)", flush=True)
+    _check(loss_rel <= LM_LOSS_REL_TOL,
+           f"losses through kernels and twins differ by {loss_rel}")
+    _check(update_rel <= LM_UPDATE_REL_TOL,
+           f"updates through kernels and twins differ by {update_rel}")
+    return {"losses": kern_run[0], "twin_losses": twin_run[0],
+            "loss_rel": loss_rel, "update_rel": update_rel}
+
+
 def kernels_line(rows, launches):
+    """Per kernel: ms, twin ms, bound and library ms summed over its rows
+    on a main path (per batch-32 forward, or per training step), and the
+    largest error of its rows in the main path's dtype."""
     out = []
     for name in ("conv_bn_relu", "bn_add_act", "bn_act", "bn_apply",
-                 "conv3x3"):
+                 "conv3x3", "fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
         mine = [r for r in rows if r["kernel"] == name]
-        timed = [r for r in mine if "ms" in r]
+        timed = [r for r in mine if "ms" in r and r["per_forward"] > 0]
+        path_dtype = "bfloat16" if name.startswith("fa_") else "float32"
 
         def per_forward(key):
             if any(r[key] is None for r in timed):
@@ -897,7 +1292,7 @@ def kernels_line(rows, launches):
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
-                               if r["dtype"] == "float32"),
+                               if r["dtype"] == path_dtype),
             "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
             "bound_ms": per_forward("bound_ms"),
             "bound_by": "operations" if ops * 2 > sum(
@@ -918,11 +1313,13 @@ def main():
     from incubator_mxnet_tpu_torch.parallel import conv_backward as cb
     from incubator_mxnet_tpu_torch.parallel import fused_conv as fc
     from incubator_mxnet_tpu_torch.util import getenv_str
+    fa = importlib.import_module(
+        "incubator_mxnet_tpu_torch.parallel.flash_attention")
 
     report = {"card": phase_card(), "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "MXTPU_CONV_BWD_KERNEL": getenv_str("MXTPU_CONV_BWD_KERNEL")}
-    report["build"] = phase_build(_cuda, (fc, cb))
+    report["build"] = phase_build(_cuda, (fc, cb, fa))
     device = torch.device("cuda", 0)
     shapes = resnet50_kernel_shapes(BATCH)
     for name, per in PER_FORWARD.items():
@@ -934,15 +1331,21 @@ def main():
     report["kernels"] = phase_kernels(torch, F, fc, shapes, device)
     report["kernels"] += phase_conv_backward(torch, cb, bwd_shapes, device)
     torch.cuda.empty_cache()
+    report["kernels"] += phase_flash_kernels(torch, fa, device)
+    torch.cuda.empty_cache()
     report["model"] = phase_model(torch, mx, fc)
     torch.cuda.empty_cache()
     kernels = [fc.conv_bn_relu, fc.bn_add_act, fc.bn_act, fc.bn_apply,
                cb.conv3x3_bwd]
     report["train"] = phase_train(torch, mx, kernels)
+    torch.cuda.empty_cache()
+    report["transformer"] = phase_transformer(torch, fa, device)
     launches = {k.name: report["model"]["served_launches"].get(k.name, 0)
                 + report["train"]["launches"][k.name] for k in kernels}
+    launches.update(report["transformer"]["launches"])
     report["launches"] = {"serve": report["model"]["served_launches"],
-                          "train": report["train"]["launches"]}
+                          "train": report["train"]["launches"],
+                          "transformer": report["transformer"]["launches"]}
     for name, n in launches.items():
         _check(n > 0, f"{name} was never launched on the main paths")
     line = kernels_line(report["kernels"], launches)

@@ -9,7 +9,8 @@ PyTorch twins do.
 
 This release ports the ResNet-50 v1 inference path and its Gluon training
 step (autograd, BatchNorm statistics, losses, SGD/NAG, Trainer,
-TrainStep); the rest of the JAX package's surface follows slice by slice
+TrainStep), and the functional Transformer LM's one-device training step
+(``models.TransformerLM``, flash attention, Adam); the rest of the JAX package's surface follows slice by slice
 (ROADMAP.md).
 
 Typical use:
@@ -46,3 +47,4 @@ from . import gluon
 from . import parallel
 from . import serve
 from . import convert
+from . import models

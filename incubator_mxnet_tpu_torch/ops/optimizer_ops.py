@@ -1,5 +1,5 @@
-"""Optimizer update operators: sgd_update, sgd_mom_update, nag_mom_update
-and the multi-tensor multi_sgd_update / multi_sgd_mom_update, plus
+"""Optimizer update operators: sgd_update, sgd_mom_update, nag_mom_update,
+adam_update and the multi-tensor multi_sgd_update / multi_sgd_mom_update, plus
 ``fused_apply``, which runs a Trainer bucket as one multi-tensor update.
 
 Counterpart of the same ops in ``incubator_mxnet_tpu/ops/optimizer_ops.py``.
@@ -47,6 +47,18 @@ def nag_mom_update(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
     g = _rescaled(grad, weight, rescale_grad, clip_gradient, wd)
     mom_new = momentum * mom + g
     return (weight - lr * (g + momentum * mom_new), mom_new)
+
+
+@register(name="adam_update", nondiff=True)
+def adam_update(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                lazy_update=True):
+    """Adam with the step's bias correction folded into ``lr`` (a float or
+    a 0-d tensor); returns (weight, mean, var)."""
+    g = _rescaled(grad, weight, rescale_grad, clip_gradient, wd)
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * torch.square(g)
+    return (weight - lr * m / (torch.sqrt(v) + epsilon), m, v)
 
 
 def _multi_rescaled(weights, grads, wds, rescale_grad, clip_gradient):

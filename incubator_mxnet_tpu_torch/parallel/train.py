@@ -15,7 +15,7 @@ loss), as the JAX package's takes and returns jax arrays.
 
 Not ported yet (ROADMAP queue A): ``mesh``, ``param_rules`` /
 ``param_spec_fn``, a compute ``dtype``, ``run_epoch`` and checkpoints, the
-optimizers other than sgd/nag, and capturing the step in a CUDA graph.
+optimizers other than sgd/nag/adam, and capturing the step in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from ..ops import optimizer_ops as _oo
 
 __all__ = ["TrainStep"]
 
-_JAX_ONLY_OPTIMIZERS = ("adam", "rmsprop", "signum", "adamw")
+_JAX_ONLY_OPTIMIZERS = ("rmsprop", "signum", "adamw")
 
 
 def _not_ported(what):
@@ -65,10 +65,27 @@ def _make_update_rule(opt_name, lr, momentum, wd, opt_kwargs):
                             **common)
             return w2, (m2,)
         return _done((lambda v: (torch.zeros_like(v),), upd))
+    if opt_name == "adam":
+        b1 = float(kw.pop("beta1", 0.9))
+        b2 = float(kw.pop("beta2", 0.999))
+        eps = float(kw.pop("epsilon", 1e-8))
+
+        def upd(w, g, st, t):
+            # the bias correction in float32, as jnp.power on a float32 t;
+            # a 0-d CPU tensor, which CUDA ops take as a scalar (no copy)
+            tt = torch.tensor(float(t), dtype=torch.float32)
+            alpha = lr * torch.sqrt(1 - torch.pow(b2, tt)) / \
+                (1 - torch.pow(b1, tt))
+            w2, m2, v2 = _oo.adam_update.fn(w, g, st[0], st[1], lr=alpha,
+                                            beta1=b1, beta2=b2, epsilon=eps,
+                                            wd=wd, **common)
+            return w2, (m2, v2)
+        return _done((lambda v: (torch.zeros_like(v), torch.zeros_like(v)),
+                      upd))
     if opt_name in _JAX_ONLY_OPTIMIZERS:
         raise _not_ported(f"optimizer {opt_name!r}")
     raise MXNetError(f"TrainStep optimizer {opt_name!r} unsupported; one of "
-                     "sgd/nag (or use Trainer)")
+                     "sgd/nag/adam (or use Trainer)")
 
 
 class TrainStep:

@@ -140,7 +140,8 @@ def test_wrappers_run_twins_on_cpu_without_launching():
         via_tune.numpy(), tfc.bn_act_reference(tz, ts, tb, relu=False).numpy())
     assert {k: v.launches for k, v in tune.kernels().items()} == before
     assert set(before) == {"conv_bn_relu", "bn_act", "bn_add_act",
-                           "bn_apply", "conv3x3"}
+                           "bn_apply", "conv3x3", "fa_fwd", "fa_bwd_dq",
+                           "fa_bwd_dkv"}
 
 
 @pytest.mark.parametrize("name", ["conv_bn_relu", "bn_act", "bn_add_act",

@@ -77,7 +77,9 @@ def test_import_and_cpu_forward_without_jax():
 
 
 @pytest.mark.parametrize("rel", ["parallel/fused_conv.py", "tune.py",
-                                 "parallel/hand_kernel.py"])
+                                 "parallel/hand_kernel.py",
+                                 "parallel/flash_attention.py",
+                                 "models/transformer.py", "parallel/mesh.py"])
 def test_kernel_dispatch_has_no_fallback(rel):
     """No try/except around a launch and no environment switch in the
     kernel wrappers or the dispatcher: on the card a kernel runs or the
@@ -158,6 +160,35 @@ def test_kernel_sources_ship_with_the_package():
     assert (_cuda.CSRC / "fused_conv.cu").is_file()
     assert (_cuda.CSRC / "conv_backward.cu").is_file()
     assert (_cuda.CSRC / "simt_gemm.cuh").is_file()
+    assert (_cuda.CSRC / "flash_attention.cu").is_file()
     assert _cuda.BUILD_DIR.name == ".torch_ext"
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert ".torch_ext/" in ignored
+
+
+def test_flash_backward_runs_the_backward_kernels():
+    """``_Flash`` owns its gradient: its forward calls the fa_fwd wrapper
+    and its backward the fa_bwd_dq and fa_bwd_dkv wrappers (through
+    ``tune.tuned_call``), never ``KernelFunction``, whose backward is a
+    twin's autograd and would leave the backward kernels unlaunched."""
+    src = open(os.path.join(PKG, "parallel/flash_attention.py"),
+               encoding="utf-8").read()
+    tree = ast.parse(src)
+    assert "KernelFunction" not in src
+    flash = next(n for n in ast.walk(tree)
+                 if isinstance(n, ast.ClassDef) and n.name == "_Flash")
+
+    def tuned_names(fn):
+        return [c.args[0].value for c in ast.walk(fn)
+                if isinstance(c, ast.Call)
+                and getattr(c.func, "attr", None) == "tuned_call"]
+
+    methods = {f.name: f for f in flash.body
+               if isinstance(f, ast.FunctionDef)}
+    assert tuned_names(methods["forward"]) == ["fa_fwd"]
+    assert tuned_names(methods["backward"]) == ["fa_bwd_dq", "fa_bwd_dkv"]
+    from incubator_mxnet_tpu_torch import tune
+    for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+        kern = tune.kernels()[name]
+        # the wrapper's call is the plain dispatch, with no autograd route
+        assert type(kern).__call__ is type(kern).dispatch

@@ -139,7 +139,7 @@ def test_trainstep_matches_the_trainer_loop():
     ({"mesh": object()}, "not ported"),
     ({"dtype": "bfloat16"}, "not ported"),
     ({"param_rules": []}, "not ported"),
-    ({"optimizer": "adam"}, "not ported"),
+    ({"optimizer": "rmsprop"}, "not ported"),
     ({"optimizer": "lbfgs"}, "unsupported"),
     ({"optimizer_params": {"learning_rate": 0.1, "momentun": 0.9}},
      "unknown optimizer_params"),
